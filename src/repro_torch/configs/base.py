@@ -75,10 +75,8 @@ ARCH_NAMES = (
 )
 
 # Architectures the port has reached, and the slice that brings each other one.
-PORTED = ("taobao_ssa",)
+PORTED = ("taobao_ssa", "fm", "dien")
 _LATER_SLICE = {
-    "fm": "the FM slice (fm_interaction kernel)",
-    "dien": "the DIEN slice (augru kernel)",
     "din": "the recsys-families slice",
     "autoint": "the recsys-families slice",
 }

@@ -1,9 +1,10 @@
-"""Synthetic Taobao-like data (port of the Taobao part of `repro.data.synthetic`).
+"""Synthetic Taobao-like and Criteo-like data (port of the Taobao and
+Criteo parts of `repro.data.synthetic`).
 
 Pure numpy, copied so the port imports nothing of `repro`: for the same
 seed these generators give arrays identical to `repro.data.synthetic`'s.
 
-Users have latent category preferences; histories are drawn from them;
+Taobao: users have latent category preferences; histories are drawn from them;
 labels come from a ground-truth logistic model on user-item affinity +
 recency-weighted history match, so a model that learns gets HR@K well
 above the 1/50 floor.
@@ -130,3 +131,25 @@ def taobao_eval_candidates(
     flat["item"] = cands.reshape(-1).astype(np.int32)
     flat["category"] = world.item_cat[flat["item"]].astype(np.int32)
     return {"batch": flat, "pos_idx": pos_idx, "n_cand": n_cand}
+
+
+def criteo_batches(
+    cfg: RecSysConfig, batch: int, steps: int, *, seed: int = 0
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Criteo-like batches for fm/autoint: Zipf ids, labels from hidden
+    per-field-pair crossing weights (so FM-family models can fit them)."""
+    rng = np.random.default_rng(seed)
+    F = len(cfg.fields)
+    vocabs = np.array([f.vocab for f in cfg.fields])
+    hid = rng.normal(size=(F, 8)).astype(np.float32) * 0.5
+    id_vec = rng.normal(size=(64, 8)).astype(np.float32)
+
+    for _ in range(steps):
+        u = rng.random((batch, F))
+        idx = np.floor((vocabs[None, :]) * u ** 3).astype(np.int64)  # zipf-ish
+        idx = np.minimum(idx, vocabs[None, :] - 1)
+        e = id_vec[idx % 64] * hid[None, :, :]
+        s = e.sum(axis=1)
+        logits = 0.5 * (np.square(s).sum(-1) - np.square(e).sum(axis=(1, 2)))
+        label = (logits > np.median(logits)).astype(np.float32)
+        yield {"sparse_idx": idx.astype(np.int32), "label": label}

@@ -47,20 +47,27 @@ def lib_path(name: str) -> Path:
 
 
 def build_all() -> dict:
-    """Compile every source whose library is missing; returns
-    {"seconds", "built": [names], "cached": [names], "ptxas": {name: text}}."""
+    """Compile every source whose library is missing, one `nvcc` per source,
+    all started together; returns {"seconds", "built": [names], "cached":
+    [names], "ptxas": {name: text}}."""
     t0 = time.perf_counter()
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
     todo = [n for n in names if not lib_path(n).exists()]
-    ptxas = {}
-    for n in todo:
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+    procs = {}
+    for n in todo:
         tmp = lib_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        ptxas[n] = proc.stdout
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {n}.cu:\n{proc.stdout}")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    ptxas = {n: proc.communicate()[0] for n, (_, proc) in procs.items()}  # waits for every one
+    failed = [n for n, (_, proc) in procs.items() if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed on " + ", ".join(
+            f"{n}.cu:\n{ptxas[n]}" for n in failed))
+    for n, (tmp, _) in procs.items():
         os.replace(tmp, lib_path(n))  # atomic: a concurrent loader sees all or nothing
     return {
         "seconds": time.perf_counter() - t0,
@@ -68,6 +75,15 @@ def build_all() -> dict:
         "cached": [n for n in names if n not in todo],
         "ptxas": ptxas,
     }
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C function `symbol` of `csrc/<name>.cu`'s library, with its
+    argument types set; it returns a CUDA error code (0 = launched)."""
+    fn = getattr(library(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def library(name: str) -> ctypes.CDLL:

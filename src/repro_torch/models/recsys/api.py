@@ -1,19 +1,20 @@
 """Uniform recsys model API: dispatch by cfg.interaction (port of `repro.models.recsys.api`).
 
-Only the `self_attn_seq` interaction (taobao_ssa) is ported; the others
-raise `NotImplementedError` naming the slice that brings them.
+The `self_attn_seq` (taobao_ssa), `fm` and `augru` (DIEN) interactions are
+ported; the others raise `NotImplementedError` naming the slice that
+brings them.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import RecSysConfig
-from repro_torch.models.recsys import taobao_ssa
+from repro_torch.models.recsys import dien, fm, taobao_ssa
 
 _MODULES = {
+    "fm": fm,
+    "augru": dien,
     "self_attn_seq": taobao_ssa,
 }
 _LATER = {
-    "fm": "the FM slice",
-    "augru": "the DIEN slice",
     "target_attn": "the recsys-families slice (DIN)",
     "self_attn": "the recsys-families slice (AutoInt)",
 }

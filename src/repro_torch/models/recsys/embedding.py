@@ -49,6 +49,12 @@ def _pad_rows(rows: int, multiple: int = 512) -> int:
     return -(-rows // multiple) * multiple
 
 
+def unified_table_def(cfg: RecSysConfig, extra_dim: int = 0) -> ParamDef:
+    """[padded Σ vocab, d] with d = `extra_dim` or the config's embed_dim."""
+    return ParamDef((_pad_rows(cfg.table_rows()), extra_dim or cfg.embed_dim),
+                    torch.float32, "embed")
+
+
 def _take_rows(table, rows: torch.Tensor) -> torch.Tensor:
     """Gather rows from a table in any representation: rows.shape + (d,).
 

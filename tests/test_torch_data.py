@@ -1,4 +1,4 @@
-"""The port's copy of the Taobao generators gives `repro.data.synthetic`'s arrays."""
+"""The port's copy of the Taobao and Criteo generators gives `repro.data.synthetic`'s arrays."""
 import pytest
 
 pytest.importorskip("torch")
@@ -42,3 +42,17 @@ def test_world_identical():
     b = tdata.TaobaoWorld(500, 300, 40, seed=4)
     for k in ("item_cat", "user_pref", "cat_vec", "item_pop"):
         np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+
+
+@pytest.mark.parametrize("seed", [0, 2])
+def test_criteo_batches_identical(seed):
+    """At FM's full Criteo vocabularies (the generator holds no table)."""
+    from repro.configs.base import get_config as jax_get_config
+    from repro_torch.configs.base import get_config
+
+    ref = list(jdata.criteo_batches(jax_get_config("fm"), 64, 2, seed=seed))
+    out = list(tdata.criteo_batches(get_config("fm"), 64, 2, seed=seed))
+    assert len(ref) == len(out) == 2
+    for a, b in zip(ref, out):
+        _equal(a, b)
+    assert out[0]["sparse_idx"].shape == (64, 39)

@@ -98,8 +98,7 @@ def test_wrapper_on_cpu_takes_plain_path_and_counts_nothing():
 
 
 @pytest.mark.parametrize("case", ["f32_idx", "3d_table", "noncontig_table", "f64_table",
-                                  "weights_shape", "empty_bag", "width_not_multiple_of_4",
-                                  "misaligned_table"])
+                                  "weights_shape", "empty_bag"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     table = torch.randn(50, 16)
     idx = torch.randint(0, 50, (4, 3), dtype=torch.int32)
@@ -117,12 +116,52 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         w = torch.ones(4, 2)
     elif case == "empty_bag":
         idx = idx[:, :0].contiguous()
-    elif case == "width_not_multiple_of_4":
-        table = torch.randn(50, 10)
-    elif case == "misaligned_table":
-        table = torch.randn(50 * 16 + 1)[1:].view(50, 16)
     with pytest.raises(expect):
         ops.embedding_bag_op(table, idx, w)
+
+
+def _misaligned(V, d, offset):
+    """A [V, d] view that starts `offset` floats into its storage."""
+    return torch.from_numpy(np.random.default_rng(9).normal(size=V * d + offset).astype(np.float32)
+                            )[offset:].view(V, d)
+
+
+# FM's first-order (d=1, 39 ids a bag) and unified (d=10) tables, DIEN's
+# d=18 tables, and tables whose data is only 4- or 8-byte aligned
+@pytest.mark.parametrize("case", ["width_1", "width_10_not_multiple_of_4", "width_18",
+                                  "misaligned_table", "table_8_byte_aligned"])
+@pytest.mark.parametrize("nnz", [1, 39])
+def test_wrapper_takes_any_width_and_a_4_byte_aligned_table(case, nnz):
+    d = {"width_1": 1, "width_10_not_multiple_of_4": 10, "width_18": 18}.get(case, 16)
+    table, idx, w = _inputs(24, nnz, d, seed=nnz + d)
+    t = torch.from_numpy(table)
+    if case == "misaligned_table":
+        t = _misaligned(500, 16, 1)
+    elif case == "table_8_byte_aligned":
+        t = _misaligned(500, 16, 2)
+    table = t.numpy()
+    for weights in (None, w):
+        out = ops.embedding_bag_op(t, torch.from_numpy(idx),
+                                   None if weights is None else torch.from_numpy(weights))
+        assert out.shape == (24, d)
+        ref_w = np.ones_like(w) if weights is None else weights
+        ref = jax_kernel(jnp.asarray(table), jnp.asarray(idx), jnp.asarray(ref_w), interpret=True)
+        _check(ref, out, nnz)
+        plain = embedding_bag_ref(t, torch.from_numpy(idx),
+                                  None if weights is None else torch.from_numpy(weights))
+        assert torch.equal(out, plain)
+
+
+@pytest.mark.parametrize("d,offset,vec", [(64, 0, 4), (16, 0, 4), (18, 0, 2), (10, 0, 2),
+                                          (1, 0, 1), (16, 1, 1), (16, 2, 2), (18, 1, 1)])
+def test_load_width_keeps_16_byte_loads_where_the_table_allows(d, offset, vec):
+    """taobao_ssa's d=64 and d=16 tables keep the 16-byte path; d=10 and 18
+    take 8 bytes, d=1 and a 4-byte-aligned table 4."""
+    from repro_torch.kernels.embedding_bag.embedding_bag import load_width
+
+    t = torch.zeros(8 * d + 4)[offset:offset + 8 * d].view(8, d)
+    assert t.data_ptr() % 4 == 0 and (t.data_ptr() - offset * 4) % 16 == 0
+    assert load_width(t) == vec
 
 
 def test_importing_the_kernel_modules_needs_no_nvcc(tmp_path):
@@ -130,7 +169,9 @@ def test_importing_the_kernel_modules_needs_no_nvcc(tmp_path):
     code = (
         "import shutil; assert shutil.which('nvcc') is None; "
         "import repro_torch.kernels._build, repro_torch.kernels.embedding_bag.ops, "
-        "repro_torch.kernels.embedding_bag.embedding_bag, repro_torch.models.recsys.embedding"
+        "repro_torch.kernels.embedding_bag.embedding_bag, repro_torch.models.recsys.embedding, "
+        "repro_torch.kernels.fm_interaction.ops, repro_torch.kernels.augru.ops, "
+        "repro_torch.models.recsys.api"
     )
     env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO / "src"), "HOME": str(tmp_path)}
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True)

@@ -20,12 +20,14 @@ from repro_torch.models.common import to_numpy_tree  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 
 
-def _tiny():
-    cfg = get_config("taobao_ssa")
+def _tiny(arch="taobao_ssa"):
+    cfg = get_config(arch)
     return dataclasses.replace(
         cfg, fields=tuple(dataclasses.replace(f, vocab=min(f.vocab, 300)) for f in cfg.fields),
         seq_len=12,
     )
+
+NO_LAUNCHES = {"embedding_bag": 0, "fm_interaction": 0, "augru": 0}
 
 
 def test_serve_on_cpu_answers_each_size():
@@ -33,17 +35,37 @@ def test_serve_on_cpu_answers_each_size():
     assert [(r["variant"], r["size"]) for r in recs] == [
         ("baseline", 1), ("baseline", 8), ("quantized", 1), ("quantized", 8)]
     for r in recs:
-        assert r["device"] == "cpu" and r["reps"] == 10
+        assert r["device"] == "cpu" and r["reps"] == 10 and r["arch"] == "taobao_ssa"
         assert math.isfinite(r["median_ms"]) and 0 < r["median_ms"] <= r["p90_ms"]
-        assert r["launches_per_call"] == 0  # CPU tensors take the plain path
+        assert r["launches_per_call"] == NO_LAUNCHES  # CPU tensors take the plain path
         json.dumps(r)
+
+
+@pytest.mark.parametrize("arch,variants", [("fm", ["baseline", "quantized"]),
+                                           ("dien", ["baseline"])])
+def test_serve_other_archs_on_cpu(arch, variants):
+    """--arch fm and dien at a tiny size: the arch's own default variants,
+    its own request generator, probabilities out of every call."""
+    cfg = _tiny(arch)
+    recs = serve.run(cfg, sizes=(1, 8), device="cpu", reps=10)
+    assert [(r["variant"], r["size"]) for r in recs] == [(v, n) for v in variants for n in (1, 8)]
+    for r in recs:
+        assert r["arch"] == arch and r["launches_per_call"] == NO_LAUNCHES
+        assert math.isfinite(r["median_ms"]) and 0 < r["median_ms"] <= r["p90_ms"]
+    batches = serve.request_batches(cfg, (1, 8), torch.device("cpu"))
+    key = "sparse_idx" if arch == "fm" else "hist_item"
+    assert batches[8][key].shape[0] == 8 and "label" not in batches[8]
+    params = serve.make_params(cfg, torch.device("cpu"), seed=1)
+    for vparams in serve.build_variants(params, variants, cfg).values():
+        p = serve.calibrate_variant(vparams, cfg, batches, reps=10)[8]["probs"]
+        assert p.shape == (8,) and bool(((p > 0) & (p < 1)).all())
 
 
 def test_calibrated_outputs_are_probabilities():
     cfg = _tiny()
     params = serve.make_params(cfg, torch.device("cpu"), seed=1)
     batches = serve.request_batches(cfg, (1, 8), torch.device("cpu"))
-    for vparams in serve.build_variants(params, serve.VARIANTS).values():
+    for vparams in serve.build_variants(params, serve.VARIANTS, cfg).values():
         for n, r in serve.calibrate_variant(vparams, cfg, batches, reps=10).items():
             p = r["probs"]
             assert p.shape == (n,) and bool(((p > 0) & (p < 1)).all())
@@ -70,7 +92,7 @@ def test_params_file_loads_the_same_tree(tmp_path):
 
 def test_untrained_variants_are_refused():
     with pytest.raises(NotImplementedError):
-        serve.build_variants({}, ["pruned"])
+        serve.build_variants({}, ["pruned"], _tiny())
 
 
 def test_default_device_without_cuda_raises():
@@ -95,9 +117,9 @@ def test_cli_without_cuda_exits_nonzero():
 def test_unported_arch_and_interaction_raise():
     from repro_torch.models.recsys import api
 
-    with pytest.raises(NotImplementedError, match="FM slice"):
-        get_config("fm")
+    with pytest.raises(NotImplementedError, match="recsys-families slice"):
+        get_config("din")
     with pytest.raises(KeyError):
         get_config("no_such_arch")
-    with pytest.raises(NotImplementedError):
-        api.module_for(dataclasses.replace(_tiny(), interaction="augru"))
+    with pytest.raises(NotImplementedError, match="DIN"):
+        api.module_for(dataclasses.replace(_tiny(), interaction="target_attn"))

@@ -15,17 +15,23 @@ from repro_torch.configs.base import get_config as torch_get_config
 from repro_torch.models.common import from_numpy_tree
 
 
-def small_configs(seq_len: int = 20):
-    """(repro cfg, repro_torch cfg) of taobao_ssa with vocabs <= 1000 and a
-    short history: 2 blocks, d=64, 4 heads as at full width."""
-    jcfg = dataclasses.replace(reduced_recsys("taobao_ssa"), seq_len=seq_len)
-    tcfg = torch_get_config("taobao_ssa")
+def reduced_pair(name: str, **over):
+    """(repro cfg, repro_torch cfg) of one arch with vocabs <= 1000, as
+    `conftest.reduced_recsys` cuts them, widths as configured, then `over`."""
+    jcfg = dataclasses.replace(reduced_recsys(name), **over)
+    tcfg = torch_get_config(name)
     tcfg = dataclasses.replace(
         tcfg,
         fields=tuple(dataclasses.replace(f, vocab=min(f.vocab, 1000)) for f in tcfg.fields),
-        seq_len=seq_len,
+        **over,
     )
     return jcfg, tcfg
+
+
+def small_configs(seq_len: int = 20):
+    """taobao_ssa with vocabs <= 1000 and a short history: 2 blocks, d=64,
+    4 heads as at full width."""
+    return reduced_pair("taobao_ssa", seq_len=seq_len)
 
 
 def jax_params(jcfg, seed: int = 0):
