@@ -17,23 +17,39 @@ Phases, one JSON line each:
    timed beside its bound, the plain version and, where one exists, one
    PyTorch library call: embedding_bag at taobao_ssa's, FM's and DIEN's
    lookups, fm_interaction at FM's B=512, augru at DIEN's B=512 and at a
-   ragged B.
-Then, for each ported arch in turn (taobao_ssa, fm, dien), at full width with
-random weights, its parameters freed before the next:
-4. serve   — the arch's variants (taobao_ssa and fm: `baseline` and
-   `quantized`; dien: `baseline`) at 1/8/32/128/512 requests through
+   ragged B, block_pruned_matmul at every masked linear of a structured
+   taobao_ssa serve call of 512 requests and at densities 0 and 1.
+4. ladder  — taobao_ssa at full width from seed 0: the launcher's
+   pretraining (40 AdamW steps on batches of 256), then `run_ladder` with
+   `LadderConfig(structured=True)` at the launcher's 10/10/15 steps; the
+   losses (finite; falling in pretraining), each stage's seconds, the
+   kernels' launches in training (exact), `variant_stats`. The
+   pretraining runs twice from the same start and must end in the same
+   bits (every gradient on the card sums in a fixed order).
+5. train vs CPU — one `make_train_step` from the same pretrained
+   parameters and batch on the card and on the CPU, on the dense tree and
+   on a structured-masked one (with its block masks), with AdamW and with
+   SGD at lr 1: every updated leaf, tables and masks included, within the
+   stated tolerance. This holds the gradients through the kernels.
+Then, for each ported arch in turn (taobao_ssa, fm, dien), at full width,
+its parameters freed before the next (taobao_ssa: the ladder's five
+trained variants; fm and dien: random weights from seed 0):
+6. serve   — the arch's variants (taobao_ssa: all five; fm: `baseline`
+   and `quantized`; dien: `baseline`) at 1/8/32/128/512 requests through
    `repro_torch.launch.serve`; every kernel's launch count is reset just
    before and read just after, and must match `EXPECT_LAUNCHES`.
-5. profile — baseline serve calls' device busy time and each kernel's
-   share (torch.profiler); the idle share sets that busy time against the
-   serve phase's unprofiled median, since the profiler slows the host.
-6. card vs CPU — the same parameters and one 512-request batch through
+7. profile — serve calls' device busy time and each kernel's share
+   (torch.profiler), every variant at 512 and baseline at 1; the idle
+   share sets that busy time against the serve phase's unprofiled median,
+   since the profiler slows the host.
+8. card vs CPU — the same parameters and one 512-request batch through
    `serve` on the card and on the CPU's plain path, every variant.
 
 Then the `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and the exit code is
 not 0; nothing is caught and passed over.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -48,15 +64,25 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.base import PORTED, get_config  # noqa: E402
+from repro_torch.core import pruning  # noqa: E402
+from repro_torch.core.compression_loop import run_ladder, serving_params, variant_stats  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.augru import ops as augru_ops  # noqa: E402
 from repro_torch.kernels.augru.ref import augru_ref  # noqa: E402
+from repro_torch.kernels.block_pruned_matmul import ops as bpm_ops  # noqa: E402
+from repro_torch.kernels.block_pruned_matmul.ref import (  # noqa: E402
+    block_pruned_matmul_ref, expand_block_mask,
+)
 from repro_torch.kernels.embedding_bag import ops as eb_ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.fm_interaction import ops as fm_ops  # noqa: E402
 from repro_torch.kernels.fm_interaction.ref import fm_interaction_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.train import make_data  # noqa: E402
+from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.recsys import api  # noqa: E402
+from repro_torch.training.optimizer import adamw, sgd  # noqa: E402
+from repro_torch.training.train_loop import make_train_step  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores.
@@ -71,18 +97,50 @@ TOL_REL = 1e-5
 PROB_TOL = 1e-5  # card vs CPU, on probabilities
 FM_RTOL, FM_ATOL = 1e-4, 1e-3  # the JAX kernel test's: (Σe)² − Σe² cancels
 AUGRU_TOL = 1e-5  # absolute: h lies in (-1, 1)
+BPM_RTOL, BPM_ATOL = 1e-5, 1e-4  # the JAX kernel test's: f32 sums of up to 256 terms
+# train vs CPU, from parameters that the card's pretraining gives bit for
+# bit in every run (its table gradients sum in batch order). SGD at lr 1
+# without momentum: the update u is the clipped gradient. Where no ReLU or
+# PReLU input lies within rounding of 0 the two devices agree to ~1e-6 of
+# a leaf's largest |u| (measured from seed 0: 2.5e-5 of a leaf's norm);
+# where one does, that unit takes the other branch on the other device
+# and moves its tokens' gradients, through attention every token of the
+# sequence and the table rows they read (measured on other parameters: up
+# to 317 elements of a leaf, 2e-3 of its largest |u|). A missing or wrong
+# gradient moves the whole leaf. So: |Δ| ≤ 10% of the leaf's largest |u|
+# everywhere and ‖Δ‖₂ ≤ 1% of ‖u‖₂. AdamW's first step is
+# -lr·g/(|g|+1e-8), about lr for every element with a gradient, whose slope
+# lr·1e-8/(|g|+1e-8)² turns the last-bit difference of a gradient that
+# cancels to ~1e-7 into up to 2·lr. A missing update gives ‖Δ‖₂ = ‖u‖₂, a
+# wrong sign 2‖u‖₂. So: ‖Δ‖₂ ≤ 20% of ‖u‖₂ (measured from seed 0: 2.2e-4),
+# and an element may differ by more than 1e-6 only where its gradient is
+# below 1e-3 of its leaf's largest, with at most 1% of the elements the
+# CPU's step moved excepted.
+TRAIN_SGD_MAX_REL, TRAIN_SGD_NORM_REL = 0.1, 1e-2
+TRAIN_ADAM_NORM_REL = 0.2
+TRAIN_ADAM_ATOL, TRAIN_ADAM_SMALL_GRAD, TRAIN_ADAM_SHARE = 1e-6, 1e-3, 1e-2
+GRAD_NORM_REL = 1e-4
+LOSS_REL = 1e-5
+LADDER = dataclasses.replace(serve.LADDER, structured=True)
 
 # kernel launches per serve call, by (arch, variant); quantized tables are
-# int8, gathered in plain torch
+# int8, gathered in plain torch; a structured ladder's 15 masked linears
+# (wq, wk, wv, wo, w1, w2 of two blocks; the tower's three) run the
+# block-pruned kernel, the student's low-rank and grouped ones do not
+_NONE = {"embedding_bag": 0, "fm_interaction": 0, "augru": 0, "block_pruned_matmul": 0}
 EXPECT_LAUNCHES = {
-    ("taobao_ssa", "baseline"): {"embedding_bag": 5, "fm_interaction": 0, "augru": 0},
-    ("taobao_ssa", "quantized"): {"embedding_bag": 0, "fm_interaction": 0, "augru": 0},
-    ("fm", "baseline"): {"embedding_bag": 2, "fm_interaction": 1, "augru": 0},
-    ("fm", "quantized"): {"embedding_bag": 0, "fm_interaction": 1, "augru": 0},
-    ("dien", "baseline"): {"embedding_bag": 5, "fm_interaction": 0, "augru": 1},
+    ("taobao_ssa", "baseline"): {**_NONE, "embedding_bag": 5},
+    ("taobao_ssa", "quantized"): _NONE,
+    ("taobao_ssa", "pruned"): {**_NONE, "embedding_bag": 5, "block_pruned_matmul": 15},
+    ("taobao_ssa", "pruned_quantized"): {**_NONE, "block_pruned_matmul": 15},
+    ("taobao_ssa", "distilled"): {**_NONE, "embedding_bag": 5},
+    ("fm", "baseline"): {**_NONE, "embedding_bag": 2, "fm_interaction": 1},
+    ("fm", "quantized"): {**_NONE, "fm_interaction": 1},
+    ("dien", "baseline"): {**_NONE, "embedding_bag": 5, "augru": 1},
 }
 KERNEL_SYMBOL = {"embedding_bag": "embedding_bag_kernel",
-                 "fm_interaction": "fm_interaction_kernel", "augru": "augru_kernel"}
+                 "fm_interaction": "fm_interaction_kernel", "augru": "augru_kernel",
+                 "block_pruned_matmul": "block_pruned_matmul_kernel"}
 
 
 def emit(obj) -> None:
@@ -290,6 +348,65 @@ def _augru_kernel(gen, flush) -> dict:
     return rec
 
 
+def _bpm_case(name, M, K, N, block_mask, gen, flush):
+    """One masked linear: x [M,K] @ (w ⊙ expand(block_mask)), w at fan-in scale."""
+    dev = torch.device("cuda")
+    x = torch.randn((M, K), generator=gen, device=dev)
+    w = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+    bm = torch.tensor(block_mask, dtype=torch.int32, device=dev)
+    out, ref = bpm_ops.block_pruned_matmul_op(x, w, bm), block_pruned_matmul_ref(x, w, bm)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    ok = bool(torch.allclose(out, ref, rtol=BPM_RTOL, atol=BPM_ATOL))
+    mask = expand_block_mask(bm, (K, N))
+    w_eff = w * mask
+    kernel_ms = _time_ms(lambda: bpm_ops.block_pruned_matmul_op(x, w, bm), flush)
+    plain_ms = _time_ms(lambda: block_pruned_matmul_ref(x, w, bm), flush)
+    library_ms = _time_ms(lambda: torch.matmul(x, w_eff), flush)
+    # least work: the surviving weights once, the columns of x that meet a
+    # surviving tile once, the tile mask, the output once; 2 flops a
+    # surviving weight and row
+    surviving = int(mask.sum())
+    live_k = int((mask.sum(dim=1) > 0).sum())
+    nbytes = 4 * (M * live_k + surviving + bm.numel() + M * N)
+    return {"shape": name, "M": M, "K": K, "N": N, "block_mask": block_mask,
+            "density": bpm_ops.density(bm), "ok": ok, "max_abs_err": err,
+            "rtol": BPM_RTOL, "atol": BPM_ATOL, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **_bound(nbytes, 2 * M * surviving)}
+
+
+def _block_pruned_matmul_kernel(gen, flush) -> dict:
+    tokens = 512 * 100  # a serve call of 512 requests: B·L rows through the encoder
+    cases = [
+        _bpm_case("enc_proj_64x64", tokens, 64, 64, [[1]], gen, flush),
+        _bpm_case("enc_w1_64x256_d0.5", tokens, 64, 256, [[1, 0]], gen, flush),
+        _bpm_case("enc_w2_256x64_d0.5", tokens, 256, 64, [[1], [0]], gen, flush),
+        _bpm_case("tower_w0_208x200", 512, 208, 200, [[1, 1], [1, 0]], gen, flush),
+        _bpm_case("tower_w1_200x80", 512, 200, 80, [[1], [0]], gen, flush),
+        _bpm_case("tower_wout_80x1", 512, 80, 1, [[1]], gen, flush),
+        _bpm_case("dense_256_d0", 256, 256, 256, [[0, 0], [0, 0]], gen, flush),
+        _bpm_case("dense_256_d1", 256, 256, 256, [[1, 1], [1, 1]], gen, flush),
+    ]
+    torch.cuda.empty_cache()
+    for c in cases:
+        emit({"phase": "kernels", "kernel": "block_pruned_matmul", **c})
+    bad = [c["shape"] for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"block_pruned_matmul disagrees with its plain version at {bad}")
+    head = cases[1]  # the widest masked linear of the serve path: 51,200 x 64 x 256 at 0.5
+    return {
+        "name": "block_pruned_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/block_pruned_matmul.cu",
+        "replaces": "src/repro/kernels/block_pruned_matmul/block_pruned_matmul.py:45",
+        "launches": None, "ok": True,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "library_call": "torch.matmul(x, w * mask), TF32 off",
+        "at": head["shape"], "shapes": cases,
+    }
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     flush = torch.empty(64 * 2**20 // 4, device="cuda")  # 64 MB > the 50 MB L2
@@ -297,6 +414,7 @@ def phase_kernels() -> dict:
         "embedding_bag": _embedding_bag_kernel(gen, flush),
         "fm_interaction": _fm_interaction_kernel(gen, flush),
         "augru": _augru_kernel(gen, flush),
+        "block_pruned_matmul": _block_pruned_matmul_kernel(gen, flush),
     }
     del flush
     torch.cuda.empty_cache()
@@ -304,24 +422,26 @@ def phase_kernels() -> dict:
 
 
 def phase_serve(arch, cfg, params_by_variant, batches):
-    """Returns the kernel launches of this arch's run, by kernel, and the
-    baseline median ms at each size."""
+    """Returns the kernel launches of this arch's run, by kernel, and each
+    variant's median ms at each size."""
     serve.reset_launch_counts()
-    results = {v: serve.calibrate_variant(p, cfg, batches, reps=SERVE_REPS)
+    results = {v: serve.calibrate_variant(p, serve.variant_cfg(v, cfg), batches, reps=SERVE_REPS)
                for v, p in params_by_variant.items()}
     launches = serve.launch_counts()
     for v, by_size in results.items():
         expect = EXPECT_LAUNCHES[(arch, v)]
         for n, r in by_size.items():
             p = r["probs"]
-            finite_in_01 = bool(torch.isfinite(p).all() and ((p > 0) & (p < 1)).all())
+            # a trained variant may be sure enough that sigmoid rounds to 0 or 1 in f32
+            finite_in_01 = bool(torch.isfinite(p).all() and ((p >= 0) & (p <= 1)).all())
             emit({"phase": "serve", "arch": arch, "variant": v, "size": n, "reps": SERVE_REPS,
                   "median_ms": float(np.median(r["ms"])),
                   "p90_ms": float(np.percentile(r["ms"], 90)),
-                  "launches_per_call": r["launches_per_call"], "probs_ok": finite_in_01})
+                  "launches_per_call": r["launches_per_call"], "probs_ok": finite_in_01,
+                  "saturated": int(((p == 0) | (p == 1)).sum())})
             if p.shape != (n,) or not finite_in_01:
                 raise AssertionError(
-                    f"{arch}/{v}@{n}: probabilities not finite in (0,1) of shape ({n},)")
+                    f"{arch}/{v}@{n}: probabilities not finite in [0,1] of shape ({n},)")
             if r["launches_per_call"] != expect:
                 raise AssertionError(
                     f"{arch}/{v}@{n}: kernel launches per call {r['launches_per_call']}, "
@@ -330,7 +450,8 @@ def phase_serve(arch, cfg, params_by_variant, batches):
         if launches[k] == 0:
             raise AssertionError(f"the {arch} serve path launched no {k} kernel")
     emit({"phase": "serve_launches", "arch": arch, "launches": launches})
-    return launches, {n: float(np.median(r["ms"])) for n, r in results["baseline"].items()}
+    return launches, {v: {n: float(np.median(r["ms"])) for n, r in by_size.items()}
+                      for v, by_size in results.items()}
 
 
 def _busy_ms(intervals) -> float:
@@ -343,9 +464,9 @@ def _busy_ms(intervals) -> float:
     return total / 1e3
 
 
-def phase_profile(arch, cfg, params, batches, serve_median_ms, sizes) -> None:
-    """Where a baseline serve call's time goes: the device's busy time and
-    each kernel's share of it (torch.profiler). The profiler slows the host
+def phase_profile(arch, variant, cfg, params, batches, serve_median_ms, sizes) -> None:
+    """Where a serve call's time goes: the device's busy time and each
+    kernel's share of it (torch.profiler). The profiler slows the host
     several-fold, so the idle share is taken against `serve_median_ms`, the
     unprofiled median of the serve phase at the same size."""
     from torch.autograd import DeviceType
@@ -369,7 +490,7 @@ def phase_profile(arch, cfg, params, batches, serve_median_ms, sizes) -> None:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
         busy_ms = _busy_ms(spans) / PROFILE_CALLS if spans else None
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        emit({"phase": "profile", "arch": arch, "variant": "baseline", "size": n,
+        emit({"phase": "profile", "arch": arch, "variant": variant, "size": n,
               "calls": PROFILE_CALLS, "profiled_wall_ms_per_call": profiled_wall_ms,
               "serve_median_ms": serve_median_ms[n], "device_busy_ms_per_call": busy_ms,
               "device_idle_share": None if busy_ms is None else 1 - busy_ms / serve_median_ms[n],
@@ -382,14 +503,11 @@ def phase_profile(arch, cfg, params, batches, serve_median_ms, sizes) -> None:
 
 def phase_card_vs_cpu(arch, cfg, params_by_variant, batch) -> None:
     cpu_batch = {k: v.to("cpu") for k, v in batch.items()}
-
-    def to_cpu(tree):
-        return {k: to_cpu(v) if isinstance(v, dict) else v.to("cpu") for k, v in tree.items()}
-
     for v, params in params_by_variant.items():
-        card = api.serve(params, batch, cfg).to("cpu")
-        host_params = to_cpu(params)
-        host = api.serve(host_params, cpu_batch, cfg)
+        vcfg = serve.variant_cfg(v, cfg)
+        card = api.serve(params, batch, vcfg).to("cpu")
+        host_params = _to_cpu(params)
+        host = api.serve(host_params, cpu_batch, vcfg)
         del host_params
         diff = float((card - host).abs().max())
         emit({"phase": "card_vs_cpu", "arch": arch, "variant": v, "size": int(card.shape[0]),
@@ -398,24 +516,185 @@ def phase_card_vs_cpu(arch, cfg, params_by_variant, batch) -> None:
             raise AssertionError(f"{arch}/{v}: card and CPU differ by {diff}")
 
 
-def drive_arch(arch: str) -> dict:
+def _to_cpu(tree):
+    return tree_map(lambda t: t.to("cpu"), tree)
+
+
+def phase_ladder():
+    """taobao_ssa at full width: the launcher's pretraining, then the
+    structured ladder. Returns the pretrained parameters and the five
+    variants as a server runs them. The pretraining runs once more from the
+    same start, after its launches are read, and must end in the same bits:
+    every gradient on the card sums in a fixed order."""
+    cfg = get_config("taobao_ssa")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = serve.make_params(cfg, dev, seed=0)
+    start = tree_map(torch.clone, params)
+    data = make_data(cfg, serve.TRAIN_BATCH, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter()
+    serve.reset_launch_counts()
+    params, losses = serve.pretrain(params, cfg, data(0), serve.TRAIN_STEPS)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter()
+    pre_launches = serve.launch_counts()
+    again, _ = serve.pretrain(start, cfg, data(0), serve.TRAIN_STEPS)
+    n_differ = sum(not torch.equal(a, b) for (_, a), (_, b) in
+                   zip(tree_leaves(params), tree_leaves(again)))
+    del start, again
+
+    stage_losses, stage_end = {}, {}
+
+    def on_step(stage, i, m):
+        stage_losses.setdefault(stage, []).append(float(m["loss"]))  # float() waits for the step
+        stage_end[stage] = time.perf_counter()
+
+    serve.reset_launch_counts()
+    t_ladder0 = time.perf_counter()
+    ladder = run_ladder(params, cfg, lambda: data(1), LADDER, on_step=on_step)
+    torch.cuda.synchronize()
+    t_ladder = time.perf_counter()
+    ladder_launches = serve.launch_counts()
+
+    seconds, prev = {}, t_ladder0
+    for stage in stage_end:  # in the order the stages ran
+        seconds[stage] = stage_end[stage] - prev
+        prev = stage_end[stage]
+    seconds["serving_trees"] = t_ladder - prev
+    fine = 3 * LADDER.finetune_steps + LADDER.qat_steps  # steps through the masked linears
+    expect_ladder = {"embedding_bag": 5 * fine + 10 * LADDER.distill_steps,  # teacher + student
+                     "block_pruned_matmul": 15 * fine, "fm_interaction": 0, "augru": 0}
+    expect_pre = {"embedding_bag": 5 * serve.TRAIN_STEPS, "block_pruned_matmul": 0,
+                  "fm_interaction": 0, "augru": 0}
+    stats = variant_stats(ladder)
+    emit({"phase": "ladder", "arch": "taobao_ssa", "ladder": dataclasses.asdict(LADDER),
+          "train_steps": serve.TRAIN_STEPS, "batch": serve.TRAIN_BATCH,
+          "init_seconds": t_init - t0, "pretrain_seconds": t_pre - t_init,
+          "pretrain_repeat_leaves_differing": n_differ,
+          "ladder_seconds": t_ladder - t_ladder0, "stage_seconds": seconds,
+          "pretrain_losses": losses, "stage_losses": stage_losses,
+          "launches_pretrain": pre_launches, "launches_ladder": ladder_launches,
+          "variant_stats": stats,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    all_losses = losses + [x for v in stage_losses.values() for x in v]
+    if not all(np.isfinite(all_losses)):
+        raise AssertionError("a training loss is not finite")
+    if n_differ:
+        raise AssertionError(f"pretraining again from the same start: {n_differ} leaves differ")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"pretraining loss did not fall: {losses[:5]} ... {losses[-5:]}")
+    if pre_launches != expect_pre or ladder_launches != expect_ladder:
+        raise AssertionError(f"training launches {pre_launches}, {ladder_launches}; "
+                             f"expected {expect_pre}, {expect_ladder}")
+    if not 0.2 < stats["pruned"]["sparsity"] < 0.5:
+        raise AssertionError(f"structured sparsity {stats['pruned']['sparsity']}")
+    variants = {name: serving_params(name, v["params"], LADDER) for name, v in ladder.items()}
+    launches = {k: pre_launches[k] + ladder_launches[k] for k in pre_launches}
+    return params, variants, launches
+
+
+def _compare_step(label, before, card, host, grads):
+    """Every updated float leaf of the card's step against the CPU's.
+    `grads` None: an SGD step at lr 1, whose update is the clipped gradient;
+    else the CPU's clipped gradients, for an AdamW step."""
+    worst, rows = 0.0, []
+    for (path, c), (_, h), (_, b) in zip(tree_leaves(card), tree_leaves(host),
+                                         tree_leaves(before)):
+        if not c.is_floating_point():
+            if not torch.equal(c.cpu(), h):
+                raise AssertionError(f"{label}: integer leaf {path} changed")
+            continue
+        d = (c.cpu() - h).abs()
+        row = {"leaf": "/".join(path), "max_abs_diff": float(d.max()),
+               "n_above_1e-6": int((d > 1e-6).sum()), "n": d.numel()}
+        u = (h - b).abs()
+        row["norm_rel"] = float(d.norm() / u.norm().clamp(min=1e-30))
+        if grads is None:
+            row["max_rel"] = float(d.max() / u.max().clamp(min=1e-30))
+            row["ok"] = (float(d.max()) <= TRAIN_SGD_MAX_REL * float(u.max()) + 1e-7
+                         and float(d.norm()) <= TRAIN_SGD_NORM_REL * float(u.norm()) + 1e-7)
+        else:
+            g = grads[path].abs()
+            off = (d > TRAIN_ADAM_ATOL) & (g > TRAIN_ADAM_SMALL_GRAD * g.max())
+            row["n_off_rule"], row["n_moved"] = int(off.sum()), int((u > 0).sum())
+            row["ok"] = (row["n_off_rule"] <= TRAIN_ADAM_SHARE * row["n_moved"]
+                         and float(d.norm()) <= TRAIN_ADAM_NORM_REL * float(u.norm()))
+        rows.append(row)
+        worst = max(worst, float(d.max()))
+    return worst, rows
+
+
+def phase_train_vs_cpu(params) -> None:
+    """One train step from the same parameters and batch on the card and on
+    the CPU: the dense tree and a structured-masked one, AdamW and SGD."""
+    cfg = get_config("taobao_ssa")
+    host_batch = next(make_data(cfg, serve.TRAIN_BATCH, "cpu")(3))
+    card_batch = {k: v.to("cuda") for k, v in host_batch.items()}
+    masked = pruning.with_block_masks(pruning.prune_tree(
+        params, pruning.prune_schedule(LADDER.prune_target, LADDER.prune_rounds)[0],
+        structured=True))
+    for tree_name, tree in (("dense", params), ("structured", masked)):
+        host_tree = _to_cpu(tree)
+        grads = None  # the SGD step runs first and gives the CPU's clipped gradients
+        for opt_name, opt in (("sgd", sgd(1.0, momentum=0.0)), ("adamw", adamw(LADDER.lr))):
+            step = make_train_step(lambda p, b: api.loss(p, b, cfg), opt)
+            serve.reset_launch_counts()
+            t0 = time.perf_counter()
+            card, _, card_m = step(tree, opt.init(tree), card_batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            launches = serve.launch_counts()
+            host, _, host_m = step(host_tree, opt.init(host_tree), host_batch)
+            t2 = time.perf_counter()
+            worst, rows = _compare_step(f"{tree_name}/{opt_name}", host_tree, card, host, grads)
+            if opt_name == "sgd":
+                grads = {path: b - a for (path, b), (_, a) in
+                         zip(tree_leaves(host_tree), tree_leaves(host)) if b.is_floating_point()}
+            loss_c, loss_h = float(card_m["loss"]), float(host_m["loss"])
+            gn_c, gn_h = float(card_m["grad_norm"]), float(host_m["grad_norm"])
+            bad = [r["leaf"] for r in rows if not r["ok"]]
+            emit({"phase": "train_vs_cpu", "tree": tree_name, "optimizer": opt_name,
+                  "loss_card": loss_c, "loss_cpu": loss_h, "grad_norm_card": gn_c,
+                  "grad_norm_cpu": gn_h, "max_abs_diff": worst, "card_seconds": t1 - t0,
+                  "cpu_seconds": t2 - t1, "launches": launches, "bad_leaves": bad,
+                  "leaves": rows})
+            expect_bpm = 15 if tree_name == "structured" else 0
+            if launches["embedding_bag"] != 5 or launches["block_pruned_matmul"] != expect_bpm:
+                raise AssertionError(f"train step launches {launches}")
+            if bad or abs(loss_c - loss_h) > LOSS_REL * abs(loss_h) or \
+                    abs(gn_c - gn_h) > GRAD_NORM_REL * gn_h:
+                raise AssertionError(f"{tree_name}/{opt_name}: card and CPU steps differ: "
+                                     f"{bad}, loss {loss_c} vs {loss_h}, gnorm {gn_c} vs {gn_h}")
+            del card, host
+        del host_tree, grads
+    torch.cuda.empty_cache()
+
+
+def drive_arch(arch: str, variants=None) -> dict:
     """Serve, profile and card-vs-CPU for one arch at full width; returns
-    the kernel launches of its serve phase."""
+    the kernel launches of its serve phase. `variants` are the trees to
+    serve (taobao_ssa: the ladder's); by default the arch's own from random
+    weights."""
     t0 = time.perf_counter()
     cfg = get_config(arch)
     dev = torch.device("cuda")
-    params = serve.make_params(cfg, dev, seed=0)
-    variants = serve.build_variants(params, serve.variants_for(cfg), cfg)
+    if variants is None:
+        params = serve.make_params(cfg, dev, seed=0)
+        variants = serve.build_variants(params, serve.variants_for(cfg), cfg)
+        del params
     batches = serve.request_batches(cfg, SIZES, dev)
     setup_s = time.perf_counter() - t0
     launches, serve_median_ms = phase_serve(arch, cfg, variants, batches)
-    profile_sizes = (1, max(SIZES)) if arch == "taobao_ssa" else (max(SIZES),)
-    phase_profile(arch, cfg, variants["baseline"], batches, serve_median_ms, profile_sizes)
+    for v, vparams in variants.items():
+        sizes = (1, max(SIZES)) if v == "baseline" and arch == "taobao_ssa" else (max(SIZES),)
+        phase_profile(arch, v, serve.variant_cfg(v, cfg), vparams, batches, serve_median_ms[v],
+                      sizes)
     phase_card_vs_cpu(arch, cfg, variants, batches[max(SIZES)])
     emit({"phase": "arch_done", "arch": arch, "setup_seconds": setup_s,
           "seconds": time.perf_counter() - t0,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
-    del params, variants, batches
+    del variants, batches
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     return launches
@@ -426,11 +705,19 @@ def main() -> None:
     phase_device()
     phase_build()
     kernels = phase_kernels()
+    params, ladder_variants, train_launches = phase_ladder()
+    phase_train_vs_cpu(params)
+    del params
 
-    by_arch = {arch: drive_arch(arch) for arch in PORTED}
+    # launches by main path: taobao_ssa's training (pretraining and the
+    # ladder), then each arch's serve phase; each counted from 0
+    by_path = {"train_taobao_ssa": train_launches}
+    for arch in PORTED:
+        by_path[f"serve_{arch}"] = drive_arch(arch, ladder_variants if arch == "taobao_ssa" else None)
+        ladder_variants = None
     for name, rec in kernels.items():
-        rec["launches_by_arch"] = {a: n[name] for a, n in by_arch.items()}
-        rec["launches"] = sum(rec["launches_by_arch"].values())
+        rec["launches_by_path"] = {path: n[name] for path, n in by_path.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
         if rec["launches"] == 0:
             raise AssertionError(f"no main path launched the {name} kernel")
 

@@ -16,6 +16,13 @@ parameter leaf decides the compute path. The reps are exactly `repro`'s:
 The int8 rep is weight-only: it dequantizes and runs an f32 matmul, as
 `repro` does (not W8A8). The dense products are `torch.matmul`, as `repro`
 leaves them to XLA outside any kernel.
+
+A masked rep (with or without int8 weights) that also holds the int32 tile
+mask "block_mask" of `core/pruning.with_block_masks` runs the hand-written
+block-pruned kernel (`kernels/block_pruned_matmul`): the same product, with
+the pruned tiles skipped. `with_block_masks` checked once that the mask is
+block-constant, so no call here checks it again; an unstructured mask has
+no "block_mask" and stays `x @ (w * mask)`, as in `repro`.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ from typing import Dict, Union
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.block_pruned_matmul.ops import block_pruned_matmul_op
 
 Rep = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
@@ -32,13 +41,26 @@ def _dequant(p: Dict[str, torch.Tensor]) -> torch.Tensor:
     return w * p["mask"] if "mask" in p else w
 
 
+def _block_pruned(x: torch.Tensor, w: torch.Tensor, block_mask: torch.Tensor,
+                  mask=None) -> torch.Tensor:
+    """x [..., K] @ (w ⊙ expand(block_mask)) through the kernel, on x as 2-D."""
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    y = block_pruned_matmul_op(x2, w.contiguous(), block_mask, mask)
+    return y.reshape(x.shape[:-1] + (w.shape[1],))
+
+
 def linear(p: Rep, x: torch.Tensor) -> torch.Tensor:
     """Apply a compressible linear on the last axis of x."""
     if not isinstance(p, dict):
         return x @ p
     if "q" in p:  # int8 dynamic-range weights
+        if "block_mask" in p:  # plain dequantization, then the kernel applies the mask
+            w = p["q"].to(torch.float32) * p["s"][None, :]
+            return _block_pruned(x.to(torch.float32), w, p["block_mask"]).to(x.dtype)
         return (x.to(torch.float32) @ _dequant(p)).to(x.dtype)
     if "mask" in p:
+        if "block_mask" in p:
+            return _block_pruned(x, p["w"], p["block_mask"], p["mask"])
         return x @ (p["w"] * p["mask"])
     if "a" in p:  # low-rank
         return (x @ p["a"]) @ p["b"]

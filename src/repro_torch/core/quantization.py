@@ -1,7 +1,8 @@
-"""C5 — dynamic-range post-training quantization (PTQ half of `repro.core.quantization`).
+"""C5 — dynamic-range quantization + QAT (port of `repro.core.quantization`).
 
   s = (max W − min W) / (2^{b−1} − 1)                      (Formula 8)
   ŵ = clip(round(w/s)·s, min W, max W)                     (Formula 9)
+  QAT: fake-quant nodes in the forward pass, straight-through gradients.
 
 Storage representations (dispatched by core/lightweight.py):
   weights  -> {"q": int8 [din,dout], "s": f32 [dout]}  per-output-channel
@@ -9,9 +10,9 @@ Storage representations (dispatched by core/lightweight.py):
               dequantize on the embedding path)
 
 `torch.round` and `jnp.round` both round half to even, so `quantize_tree`
-gives bit-equal `q` and `s` to `repro`'s on the same weights. The QAT half
-(`ste_quant`, `qat_params`) needs autograd through the training loop and
-comes with the training slice.
+gives bit-equal `q` and `s` to `repro`'s on the same weights. A masked rep
+that carries the derived `"block_mask"` of `core/pruning.with_block_masks`
+keeps it through `quantize_tree` and `qat_params`.
 """
 from __future__ import annotations
 
@@ -29,6 +30,11 @@ def fake_quant(w: torch.Tensor, bits: int = 8) -> torch.Tensor:
     """Formula 9: quantize-dequantize (float in, float out)."""
     s = torch.clamp(dynamic_range_step(w, bits), min=1e-12)
     return torch.clamp(torch.round(w / s) * s, w.min(), w.max())
+
+
+def ste_quant(w: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """QAT node: fake-quant forward, identity (straight-through) backward."""
+    return w + (fake_quant(w, bits) - w).detach()
 
 
 def quantize_weight(w: torch.Tensor, bits: int = 8) -> dict:
@@ -73,6 +79,8 @@ def quantize_tree(params):
         if isinstance(leaf, dict) and "w" in leaf and "mask" in leaf:
             rep = quantize_weight(leaf["w"] * leaf["mask"])
             rep["mask"] = leaf["mask"]
+            if "block_mask" in leaf:
+                rep["block_mask"] = leaf["block_mask"]
             return rep
         if not isinstance(leaf, torch.Tensor) or not leaf.is_floating_point():
             return leaf
@@ -88,6 +96,25 @@ def quantize_tree(params):
         return visit(path, node)
 
     return walk((), params)
+
+
+def qat_params(params, bits: int = 8):
+    """Insert STE fake-quant on every 2-D float weight (Formula 9 forward,
+    full-precision backward), tables and positions included, as in `repro`.
+    Call inside the loss: loss(qat_params(p), ...)."""
+
+    def walk(node):
+        if isinstance(node, dict) and "mask" in node:  # a leaf of repro's walk
+            if "w" not in node:
+                return node
+            return {**node, "w": ste_quant(node["w"] * node["mask"], bits)}
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if torch.is_tensor(node) and node.ndim == 2 and node.is_floating_point():
+            return ste_quant(node, bits)
+        return node
+
+    return walk(params)
 
 
 def _model_leaves(node):

@@ -35,3 +35,16 @@ def dispatch_device(op: str, **tensors) -> torch.device:
         raise ValueError(
             f"tensors are on {dev} but the current device is cuda:{torch.cuda.current_device()}")
     return dev
+
+
+def check_no_grad(op: str, **tensors) -> None:
+    """Raise if autograd would need a gradient through a kernel that has no
+    backward (grad mode on and one of `tensors` requires grad)."""
+    if not torch.is_grad_enabled():
+        return
+    needing = [name for name, t in tensors.items() if t.requires_grad]
+    if needing:
+        raise RuntimeError(
+            f"{op} has no backward on CUDA, but {', '.join(needing)} requires grad: "
+            "call it under torch.no_grad(), or on CPU tensors (the plain version is "
+            "differentiable)")

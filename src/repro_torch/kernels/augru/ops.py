@@ -5,12 +5,16 @@ goes to the Hopper kernel, or the call raises. Unlike `repro`'s wrapper,
 which falls back to the ref unless B divides by 128, the kernel takes any
 B. It refuses a `g` whose `wh` does not fit in a block's shared memory
 (g > 136), since the kernel keeps all of `wh` there.
+
+The kernel has no backward yet: on CUDA tensors of which one requires
+grad, with grad mode on, the wrapper raises rather than return an output
+that autograd cannot see through. Training DIEN on the card waits for it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._checks import check_tensor, dispatch_device
+from repro_torch.kernels._checks import check_no_grad, check_tensor, dispatch_device
 from repro_torch.kernels.augru.augru import MAX_SMEM_BYTES, augru, smem_bytes
 from repro_torch.kernels.augru.ref import augru_ref
 
@@ -41,6 +45,7 @@ def augru_op(zx: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor, att: torch.Te
     dev = dispatch_device("augru_op", zx=zx, wh=wh, h0=h0, att=att, mask=mask)
     if dev.type == "cpu":
         return augru_ref(zx, wh, h0, att, mask)
+    check_no_grad("augru_op", zx=zx, wh=wh, h0=h0, att=att)
     if smem_bytes(g) > MAX_SMEM_BYTES:
         raise ValueError(f"g={g}: wh needs {smem_bytes(g)} bytes of shared memory, "
                          f"a block has {MAX_SMEM_BYTES}")

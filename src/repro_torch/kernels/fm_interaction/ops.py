@@ -4,12 +4,16 @@ A CPU tensor goes to the plain version (`ref.fm_interaction_ref`); a CUDA
 tensor goes to the Hopper kernel, or the call raises. Unlike `repro`'s
 wrapper, which falls back to the ref unless B divides by 256, the kernel
 takes any B.
+
+The kernel has no backward yet: on a CUDA tensor that requires grad, with
+grad mode on, the wrapper raises rather than return an output that
+autograd cannot see through. Training FM on the card waits for it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._checks import check_tensor, dispatch_device
+from repro_torch.kernels._checks import check_no_grad, check_tensor, dispatch_device
 from repro_torch.kernels.fm_interaction.fm_interaction import fm_interaction
 from repro_torch.kernels.fm_interaction.ref import fm_interaction_ref
 
@@ -26,6 +30,7 @@ def fm_interaction_op(e: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"need B, F and k of at least 1, got e {tuple(e.shape)}")
     if dispatch_device("fm_interaction_op", e=e).type == "cpu":
         return fm_interaction_ref(e)
+    check_no_grad("fm_interaction_op", e=e)
     out = fm_interaction(e)
     launches += 1
     return out

@@ -1,21 +1,30 @@
-"""Serving launcher (serve half of `repro.launch.serve`): builds the
-Table-I variants that need no training for one recsys arch at full width
+"""Serving launcher (the pipeline of `repro.launch.serve` before its
+simulator): builds the Table-I variants of one recsys arch at full width
 and times the serve call at each batch size, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch taobao_ssa|fm|dien] \
-        [--variants baseline,quantized] --sizes 1,8,32,128,512 [--device cuda] \
+        [--variants baseline,quantized,pruned,pruned_quantized,distilled] \
+        [--train-steps 40] [--structured] --sizes 1,8,32,128,512 [--device cuda] \
         [--params params.npz] [--reps 20]
 
 Prints one JSON line per variant and size: median and p90 ms of a serve
-call, and each kernel's launches per call. Parameters are random
-(`init_params` on the device, from seed 0) unless `--params` names an
-.npz whose keys are the tree's paths joined by "/" (e.g. "tables/item",
-"enc0/wq", "tower_w0"). `quantized` is post-training quantization of those
-parameters (`core/quantization.quantize_tree`); `dien` has no quantized
-variant (see `build_variants`). Requests come from `criteo_batches` for
-`fm` and from `taobao_batches` otherwise. Training, the pruned,
-pruned_quantized and distilled variants, and the hand-off of the curves to
-the serving simulator come with later slices.
+call, and each kernel's launches per call; then, when the ladder ran, one
+line of `variant_stats`. Parameters are random (`init_params` on the
+device, from seed 0) unless `--params` names an .npz whose keys are the
+tree's paths joined by "/" (e.g. "tables/item", "enc0/wq", "tower_w0").
+taobao_ssa, the arch with a ladder, then always pretrains, as `repro`'s
+launcher does, whichever variants are asked for: `--train-steps` steps of
+AdamW at lr 1e-3 on batches of 256 (`launch/train.make_data`, seed 0), so
+`baseline` names the same tree in every run. `quantized` is post-training
+quantization of those parameters (`core/quantization.quantize_tree`). The
+trained variants (`pruned`, `pruned_quantized`, `distilled`) come from
+`run_ladder` with 10 fine-tune, 10 QAT and 15 distillation steps on the
+batches of seed 1; `--structured` prunes in 128 x 128 tiles, whose linears
+then run the block-pruned kernel. fm and dien have no ladder and serve
+their weights as they are; `dien` has no quantized variant either (see
+`UNSERVABLE`). Requests come from `criteo_batches` for `fm` and from
+`taobao_batches` otherwise. The hand-off of the curves to the serving
+simulator comes with a later slice.
 
 Matmuls run in full f32: TF32 is switched off explicitly, since the JAX
 reference is full f32.
@@ -23,6 +32,7 @@ reference is full f32.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -32,16 +42,33 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import PORTED, RecSysConfig, get_config
+from repro_torch.core.compression_loop import (
+    LadderConfig, run_ladder, serving_params, variant_stats)
+from repro_torch.core.distillation import make_student_cfg
 from repro_torch.core.quantization import quantize_tree
 from repro_torch.data.synthetic import criteo_batches, taobao_batches
 from repro_torch.kernels.augru import ops as augru_ops
+from repro_torch.kernels.block_pruned_matmul import ops as block_pruned_matmul_ops
 from repro_torch.kernels.embedding_bag import ops as embedding_bag_ops
 from repro_torch.kernels.fm_interaction import ops as fm_interaction_ops
+from repro_torch.launch.train import make_data
 from repro_torch.models.common import from_numpy_tree, init_params
 from repro_torch.models.recsys import api as rec_api
+from repro_torch.training.optimizer import get_optimizer
+from repro_torch.training.train_loop import make_train_step
 
 SIZES = (1, 8, 32, 128, 512)
-VARIANTS = ("baseline", "quantized")  # the Table-I variants that need no training
+VARIANTS = ("baseline", "quantized", "pruned", "pruned_quantized", "distilled")
+TRAINED = ("pruned", "pruned_quantized", "distilled")  # need pretraining and the ladder
+TRAIN_STEPS = 40  # pretraining steps, as repro's launcher
+TRAIN_BATCH = 256
+TRAIN_LR = 1e-3
+LADDER = LadderConfig(finetune_steps=10, qat_steps=10, distill_steps=15)  # repro's launcher's
+
+_NO_LADDER = (
+    "repro builds the trained variants for taobao_ssa only: its "
+    "distillation.init_student_from_teacher (src/repro/core/distillation.py:33-39) builds a "
+    "taobao_ssa student and copies the teacher's 'pos', so run_ladder raises for this arch")
 # (interaction, variant) pairs the reference cannot serve, and why
 UNSERVABLE = {
     ("augru", "quantized"): (
@@ -49,12 +76,13 @@ UNSERVABLE = {
         "(src/repro/models/recsys/dien.py:46) multiplies the GRU weights with a bare @, "
         "which raises on the int8 rep dicts quantize_tree makes of them"
     ),
+    **{(arch, v): _NO_LADDER for arch in ("fm", "augru") for v in TRAINED},
 }
 WARMUP = 3  # untimed calls at each size before the timed ones
 
 # every kernel wrapper of the port, by kernel name; each counts its launches
 KERNELS = {"embedding_bag": embedding_bag_ops, "fm_interaction": fm_interaction_ops,
-           "augru": augru_ops}
+           "augru": augru_ops, "block_pruned_matmul": block_pruned_matmul_ops}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -100,18 +128,57 @@ def check_variants(names: Iterable[str], cfg: RecSysConfig) -> None:
     """Raise for a variant that `build_variants` cannot make for this arch."""
     for name in names:
         if name not in VARIANTS:
-            raise NotImplementedError(
-                f"variant {name!r} needs training and comes with the training slice"
-            )
+            raise ValueError(f"unknown variant {name!r}; the variants are {VARIANTS}")
         if (cfg.interaction, name) in UNSERVABLE:
             raise NotImplementedError(UNSERVABLE[(cfg.interaction, name)])
 
 
-def build_variants(params: Dict, names: Iterable[str], cfg: RecSysConfig) -> Dict[str, Dict]:
-    """The Table-I variants that need no training."""
+def has_ladder(cfg: RecSysConfig) -> bool:
+    """Whether `run_ladder` builds this arch's trained variants (taobao_ssa only)."""
+    return all((cfg.interaction, v) not in UNSERVABLE for v in TRAINED)
+
+
+def base_params(cfg: RecSysConfig, device, params_path: Optional[str] = None,
+                train_steps: int = TRAIN_STEPS):
+    """The parameters every variant is built from, and the ladder's
+    fine-tuning batches (None without a ladder): the loaded or seed-0
+    weights, pretrained `train_steps` steps where the arch has a ladder."""
+    params = load_params(params_path, device) if params_path else make_params(cfg, device)
+    if not has_ladder(cfg):
+        return params, None
+    data = make_data(cfg, TRAIN_BATCH, device)
+    params, _ = pretrain(params, cfg, data(0), train_steps)
+    return params, lambda: data(1)  # every stage replays the same batches
+
+
+def pretrain(params: Dict, cfg: RecSysConfig, batches, steps: int) -> Tuple[Dict, List[float]]:
+    """`steps` AdamW steps at `TRAIN_LR` on `rec_api.loss`; returns the
+    parameters and each step's loss."""
+    opt = get_optimizer("adamw", TRAIN_LR)
+    step = make_train_step(lambda p, b: rec_api.loss(p, b, cfg), opt)
+    state = opt.init(params)
+    losses = []
+    for _, b in zip(range(steps), batches):
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+    return params, losses
+
+
+def build_variants(params: Dict, names: Iterable[str], cfg: RecSysConfig, *,
+                   batch_fn=None, ladder: Optional[LadderConfig] = None) -> Dict[str, Dict]:
+    """{name: the tree `serve` runs}. Without a trained variant among
+    `names` this is `params` and its PTQ; with one, `run_ladder(params, cfg,
+    batch_fn, ladder)` builds all five, as `repro` does, and a structured
+    ladder's masked variants gain their block masks (`serving_params`)."""
     names = tuple(names)
     check_variants(names, cfg)
-    return {name: params if name == "baseline" else quantize_tree(params) for name in names}
+    if not any(n in TRAINED for n in names):
+        return {name: params if name == "baseline" else quantize_tree(params) for name in names}
+    if batch_fn is None:
+        raise ValueError("the trained variants need batch_fn, the fine-tuning batches")
+    ladder = ladder or LADDER
+    built = run_ladder(params, cfg, batch_fn, ladder)
+    return {name: serving_params(name, built[name]["params"], ladder) for name in names}
 
 
 def request_batches(cfg: RecSysConfig, sizes: Iterable[int], device, seed: int = 2) -> Dict[int, Dict]:
@@ -129,6 +196,11 @@ def request_batches(cfg: RecSysConfig, sizes: Iterable[int], device, seed: int =
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def variant_cfg(name: str, cfg: RecSysConfig) -> RecSysConfig:
+    """The config variant `name` serves with: the distilled student's is shallower."""
+    return make_student_cfg(cfg) if name == "distilled" else cfg
 
 
 def calibrate_variant(params: Dict, cfg: RecSysConfig, batches: Dict[int, Dict],
@@ -161,25 +233,34 @@ def calibrate_variant(params: Dict, cfg: RecSysConfig, batches: Dict[int, Dict],
 
 def run(cfg: Optional[RecSysConfig] = None, *, variants: Optional[Iterable[str]] = None,
         sizes: Iterable[int] = SIZES, device="cuda", params_path: Optional[str] = None,
-        reps: int = 10) -> List[Dict]:
+        reps: int = 10, train_steps: int = TRAIN_STEPS,
+        ladder: Optional[LadderConfig] = None) -> List[Dict]:
     """Build the variants (by default all the arch serves, `variants_for`)
-    and time them; one record per (variant, size)."""
+    and time them; one record per (variant, size), then one of
+    `variant_stats` when the ladder ran. taobao_ssa pretrains
+    `train_steps` steps first (`base_params`); a trained variant among them
+    runs `ladder` (default `LADDER`)."""
     dev = resolve_device(device)
     cfg = cfg or get_config("taobao_ssa")
     variants = tuple(variants or variants_for(cfg))
     check_variants(variants, cfg)  # before the parameters are built
-    params = load_params(params_path, dev) if params_path else make_params(cfg, dev)
+    params, batch_fn = base_params(cfg, dev, params_path, train_steps)
     batches = request_batches(cfg, sizes, dev)
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     records = []
-    for name, vparams in build_variants(params, variants, cfg).items():
-        for n, r in calibrate_variant(vparams, cfg, batches, reps=reps).items():
+    built = build_variants(params, variants, cfg, batch_fn=batch_fn, ladder=ladder)
+    for name, vparams in built.items():
+        vcfg = variant_cfg(name, cfg)
+        for n, r in calibrate_variant(vparams, vcfg, batches, reps=reps).items():
             records.append({
                 "arch": cfg.name, "variant": name, "size": n, "device": kind, "reps": reps,
                 "median_ms": float(np.median(r["ms"])),
                 "p90_ms": float(np.percentile(r["ms"], 90)),
                 "launches_per_call": r["launches_per_call"],
             })
+    if any(v in TRAINED for v in variants):
+        records.append({"arch": cfg.name, "variant_stats": variant_stats(
+            {name: {"params": p} for name, p in built.items()})})
     return records
 
 
@@ -187,7 +268,12 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="taobao_ssa", choices=PORTED)
     ap.add_argument("--variants", default=None,
-                    help="comma-separated; default: the arch's own (dien: baseline only)")
+                    help="comma-separated; default: the arch's own (taobao_ssa: all five, "
+                         "fm: baseline and quantized, dien: baseline)")
+    ap.add_argument("--train-steps", type=int, default=TRAIN_STEPS,
+                    help="taobao_ssa's pretraining steps, before any variant is built")
+    ap.add_argument("--structured", action="store_true",
+                    help="prune in 128 x 128 tiles (the block-pruned kernel's path)")
     ap.add_argument("--sizes", default=",".join(map(str, SIZES)))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--params", default=None, help=".npz of '/'-joined parameter paths")
@@ -201,6 +287,8 @@ def main(argv=None) -> None:
         variants=args.variants.split(",") if args.variants else None,
         sizes=[int(s) for s in args.sizes.split(",")],
         device=args.device, params_path=args.params, reps=args.reps,
+        train_steps=args.train_steps,
+        ladder=dataclasses.replace(LADDER, structured=args.structured),
     ):
         print(json.dumps(rec), flush=True)
 

@@ -79,3 +79,49 @@ def to_numpy_tree(tree) -> Dict[str, Any]:
     if isinstance(tree, dict):
         return {k: to_numpy_tree(v) for k, v in tree.items()}
     return tree.detach().cpu().numpy()
+
+
+def tree_map(fn, tree, *rest):
+    """`fn` over the leaves of nested dicts that share `tree`'s keys (`tree`
+    sets which keys are walked; `rest` may hold more)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree, path: Tuple[str, ...] = ()):
+    """(path, leaf) pairs of a nested dict, in `jax.tree.leaves` order (sorted keys)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def tree_from_leaves(pairs) -> Dict[str, Any]:
+    """Inverse of `tree_leaves`: (path, leaf) pairs -> the nested dict."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in pairs:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def float_tree(tree):
+    """The float tensor leaves of a nested dict, same keys, others left out:
+    what `repro` differentiates and updates (its trees hold float leaves
+    only; the port's may also carry integer ones, such as int8 weights or
+    the block masks of `core/pruning.with_block_masks`)."""
+    if isinstance(tree, dict):
+        out = {k: float_tree(v) for k, v in tree.items()}
+        return {k: v for k, v in out.items() if v is not None}
+    return tree if torch.is_tensor(tree) and tree.is_floating_point() else None
+
+
+def merge_tree(tree, update):
+    """`tree` with the leaves that `update` (a subtree of it) holds replaced."""
+    if not isinstance(update, dict):
+        return update
+    return {k: merge_tree(v, update[k]) if k in update else v for k, v in tree.items()}

@@ -56,3 +56,29 @@ def test_criteo_batches_identical(seed):
     for a, b in zip(ref, out):
         _equal(a, b)
     assert out[0]["sparse_idx"].shape == (64, 39)
+
+
+@pytest.mark.parametrize("arch", ["taobao_ssa", "fm", "dien"])
+def test_training_data_and_reduced_config_match_repro_launch_train(arch):
+    """`launch/train.make_data` yields repro's `make_data` batches (as
+    tensors), replayed afresh each call, and `reduced_config` cuts the same
+    vocabularies."""
+    import dataclasses
+
+    from repro.configs.base import get_config as jget
+    from repro.launch import train as jtrain
+    from repro_torch.configs.base import get_config as tget
+    from repro_torch.launch import train as ttrain
+
+    jcfg, tcfg = jtrain.reduced_config(jget(arch)), ttrain.reduced_config(tget(arch))
+    assert [f.vocab for f in jcfg.fields] == [f.vocab for f in tcfg.fields]
+    assert max(f.vocab for f in tcfg.fields) == 5000
+    jcfg = dataclasses.replace(jcfg, seq_len=12)
+    tcfg = dataclasses.replace(tcfg, seq_len=12)
+    jdata_fn, tdata_fn = jtrain.make_data(jcfg, 16, seed_base=3), ttrain.make_data(tcfg, 16, "cpu", 3)
+    for step in (0, 1):
+        for _ in range(2):  # a second call starts the same batches again
+            ref = next(jdata_fn(step))
+            out = next(tdata_fn(step))
+            _equal({k: np.asarray(v) for k, v in ref.items()},
+                   {k: v.numpy() for k, v in out.items()})

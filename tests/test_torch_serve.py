@@ -11,11 +11,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_workers  # noqa: E402,F401  (one torch thread per xdist worker)
+
 import numpy as np  # noqa: E402
 
 from repro_torch.configs.base import get_config  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models.common import to_numpy_tree  # noqa: E402
+from repro_torch.core.compression_loop import LadderConfig, run_ladder  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.models.common import to_numpy_tree, tree_leaves  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -27,18 +30,75 @@ def _tiny(arch="taobao_ssa"):
         seq_len=12,
     )
 
-NO_LAUNCHES = {"embedding_bag": 0, "fm_interaction": 0, "augru": 0}
+NO_LAUNCHES = {"embedding_bag": 0, "fm_interaction": 0, "augru": 0, "block_pruned_matmul": 0}
+SHORT_LADDER = LadderConfig(finetune_steps=2, qat_steps=2, distill_steps=2)
 
 
 def test_serve_on_cpu_answers_each_size():
+    """taobao_ssa's default: all five variants, after the launcher's own
+    pretraining (40 steps) and ladder (10/10/15 steps), as `repro`'s."""
     recs = serve.run(_tiny(), sizes=(1, 8), device="cpu", reps=10)
-    assert [(r["variant"], r["size"]) for r in recs] == [
-        ("baseline", 1), ("baseline", 8), ("quantized", 1), ("quantized", 8)]
-    for r in recs:
+    *timed, stats = recs
+    assert [(r["variant"], r["size"]) for r in timed] == [
+        (v, n) for v in serve.VARIANTS for n in (1, 8)]
+    for r in timed:
         assert r["device"] == "cpu" and r["reps"] == 10 and r["arch"] == "taobao_ssa"
         assert math.isfinite(r["median_ms"]) and 0 < r["median_ms"] <= r["p90_ms"]
         assert r["launches_per_call"] == NO_LAUNCHES  # CPU tensors take the plain path
         json.dumps(r)
+    assert set(stats["variant_stats"]) == set(serve.VARIANTS)
+    assert 0.3 < stats["variant_stats"]["pruned"]["sparsity"] < 0.5
+    json.dumps(stats)
+
+
+@pytest.mark.parametrize("structured", [False, True])
+def test_launcher_builds_and_serves_the_five_taobao_ssa_variants(structured):
+    """The trained variants at a tiny size, the structured ladder too: its
+    masked variants carry block masks, and every call gives probabilities."""
+    cfg = _tiny()
+    dev = torch.device("cpu")
+    data = train.make_data(cfg, 32, dev)
+    params, losses = serve.pretrain(serve.make_params(cfg, dev, seed=1), cfg, data(0), 3)
+    assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
+    ladder = dataclasses.replace(SHORT_LADDER, structured=structured)
+    built = serve.build_variants(params, serve.VARIANTS, cfg, batch_fn=lambda: data(1),
+                                 ladder=ladder)
+    assert tuple(built) == serve.VARIANTS
+    for name in ("pruned", "pruned_quantized"):
+        assert ("block_mask" in built[name]["enc0"]["w1"]) == structured
+    batches = serve.request_batches(cfg, (1, 8), dev)
+    for name, vparams in built.items():
+        vcfg = serve.variant_cfg(name, cfg)
+        for n, r in serve.calibrate_variant(vparams, vcfg, batches, reps=10).items():
+            p = r["probs"]
+            assert p.shape == (n,) and bool(((p > 0) & (p < 1)).all()), name
+            assert r["launches_per_call"] == NO_LAUNCHES
+    assert serve.variant_cfg("distilled", cfg).n_attn_layers == 1
+
+
+def test_taobao_ssa_pretrains_whatever_the_variants_and_fm_does_not():
+    """`baseline` names the same tree in every run: taobao_ssa's launcher
+    pretrains before building any variant, as `repro`'s does; fm, which has
+    no ladder, serves its seed-0 weights."""
+    dev = torch.device("cpu")
+    cfg = _tiny()
+    init = serve.make_params(cfg, dev)
+    params, batch_fn = serve.base_params(cfg, dev, train_steps=2)
+    assert batch_fn is not None and serve.has_ladder(cfg)
+    assert not torch.equal(params["enc0"]["wq"], init["enc0"]["wq"])
+    again, _ = serve.base_params(cfg, dev, train_steps=2)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_leaves(params),
+                                                           tree_leaves(again)))
+    fm = _tiny("fm")
+    fm_params, fm_batches = serve.base_params(fm, dev, train_steps=2)
+    assert fm_batches is None and not serve.has_ladder(fm)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(tree_leaves(fm_params), tree_leaves(serve.make_params(fm, dev))))
+
+
+def test_trained_variants_need_batches():
+    with pytest.raises(ValueError, match="batch_fn"):
+        serve.build_variants({}, ["pruned"], _tiny())
 
 
 @pytest.mark.parametrize("arch,variants", [("fm", ["baseline", "quantized"]),
@@ -63,10 +123,15 @@ def test_serve_other_archs_on_cpu(arch, variants):
 
 def test_calibrated_outputs_are_probabilities():
     cfg = _tiny()
-    params = serve.make_params(cfg, torch.device("cpu"), seed=1)
-    batches = serve.request_batches(cfg, (1, 8), torch.device("cpu"))
-    for vparams in serve.build_variants(params, serve.VARIANTS, cfg).values():
-        for n, r in serve.calibrate_variant(vparams, cfg, batches, reps=10).items():
+    dev = torch.device("cpu")
+    params = serve.make_params(cfg, dev, seed=1)
+    batches = serve.request_batches(cfg, (1, 8), dev)
+    data = train.make_data(cfg, 32, dev)
+    built = serve.build_variants(params, serve.VARIANTS, cfg, batch_fn=lambda: data(1),
+                                 ladder=SHORT_LADDER)
+    for name, vparams in built.items():
+        vcfg = serve.variant_cfg(name, cfg)
+        for n, r in serve.calibrate_variant(vparams, vcfg, batches, reps=10).items():
             p = r["probs"]
             assert p.shape == (n,) and bool(((p > 0) & (p < 1)).all())
 
@@ -90,9 +155,25 @@ def test_params_file_loads_the_same_tree(tmp_path):
     assert torch.equal(loaded["enc1"]["w2"], params["enc1"]["w2"])
 
 
-def test_untrained_variants_are_refused():
-    with pytest.raises(NotImplementedError):
-        serve.build_variants({}, ["pruned"], _tiny())
+@pytest.mark.parametrize("arch", ["fm", "dien"])
+@pytest.mark.parametrize("variant", ["pruned", "pruned_quantized", "distilled"])
+def test_untrained_variants_are_refused(arch, variant):
+    """repro's ladder builds taobao_ssa students only, so FM and DIEN have
+    no trained variant (nor does the port's run_ladder)."""
+    cfg = _tiny(arch)
+    with pytest.raises(NotImplementedError, match="taobao_ssa"):
+        serve.build_variants({}, [variant], cfg)
+    with pytest.raises(NotImplementedError, match="taobao_ssa"):
+        serve.run(cfg, variants=[variant], sizes=(1,), device="cpu")
+    assert variant not in serve.variants_for(cfg)
+    if arch == "fm":
+        with pytest.raises(NotImplementedError, match="taobao_ssa"):
+            run_ladder({}, cfg, lambda: iter(()))
+
+
+def test_unknown_variant_is_refused():
+    with pytest.raises(ValueError, match="unknown variant"):
+        serve.build_variants({}, ["sparse"], _tiny())
 
 
 def test_default_device_without_cuda_raises():

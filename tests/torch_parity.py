@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import torch_workers  # noqa: F401  (one torch thread per xdist worker)
 from conftest import reduced_recsys
 from repro.models.common import init_params as jax_init_params
 from repro.models.recsys import api as jax_api
