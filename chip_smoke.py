@@ -18,7 +18,12 @@ Phases, one JSON line each:
    PyTorch library call: embedding_bag at taobao_ssa's, FM's and DIEN's
    lookups, fm_interaction at FM's B=512, augru at DIEN's B=512 and at a
    ragged B, block_pruned_matmul at every masked linear of a structured
-   taobao_ssa serve call of 512 requests and at densities 0 and 1.
+   taobao_ssa serve call of 512 requests and at densities 0 and 1,
+   local_attention at the C2 ranker's call of 512 requests (BH 2048,
+   L 100, dh 16, window 32, the history key mask) and at ragged, causal,
+   bf16, dh 32/64/128 and no-valid-key cases, int8_matmul at the ranker's
+   FFN w1 (51,200 x 64 x 256), at 512³ and at ragged shapes (int32
+   accumulators equal to the plain version's).
 4. ladder  — taobao_ssa at full width from seed 0: the launcher's
    pretraining (40 AdamW steps on batches of 256), then `run_ladder` with
    `LadderConfig(structured=True)` at the launcher's 10/10/15 steps; the
@@ -44,6 +49,14 @@ trained variants; fm and dien: random weights from seed 0):
    since the profiler slows the host.
 8. card vs CPU — the same parameters and one 512-request batch through
    `serve` on the card and on the CPU's plain path, every variant.
+Then two more paths, each with its launches counted from 0:
+9. serve_taobao_ssa_c2 — taobao_ssa under the paper's C2 window of 32
+   through `serve.run`: pretraining, the structured ladder, the five
+   variants at every size; launches per call and in all (training's and
+   serving's, worked out); then card vs CPU on baseline and quantized, a
+   window of L = 100 against full attention, a profile at 1 and 512.
+10. bench_kernels — `python -m repro_torch.launch.bench_kernels`'s six
+   rows, every kernel at `benchmarks/bench_kernels.py`'s shapes.
 
 Then the `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and the exit code is
@@ -63,9 +76,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs.base import PORTED, get_config  # noqa: E402
+from repro_torch.configs.base import PORTED, get_config, with_attn_window  # noqa: E402
 from repro_torch.core import pruning  # noqa: E402
 from repro_torch.core.compression_loop import run_ladder, serving_params, variant_stats  # noqa: E402
+from repro_torch.core.quantization import quantize_weight  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.augru import ops as augru_ops  # noqa: E402
 from repro_torch.kernels.augru.ref import augru_ref  # noqa: E402
@@ -77,21 +91,16 @@ from repro_torch.kernels.embedding_bag import ops as eb_ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.fm_interaction import ops as fm_ops  # noqa: E402
 from repro_torch.kernels.fm_interaction.ref import fm_interaction_ref  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import bench_kernels, serve  # noqa: E402
+from repro_torch.launch.bench_kernels import bound, time_ms  # noqa: E402
 from repro_torch.launch.train import make_data  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.recsys import api  # noqa: E402
 from repro_torch.training.optimizer import adamw, sgd  # noqa: E402
 from repro_torch.training.train_loop import make_train_step  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
-# outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
 SIZES = (1, 8, 32, 128, 512)
 SERVE_REPS = 20
-KERNEL_ITERS = 50
-SLEEP_CYCLES = 1_000_000  # ~0.5 ms at H100 clocks: longer than the host takes to enqueue a call
 PROFILE_CALLS = 10
 TOL_REL = 1e-5
 PROB_TOL = 1e-5  # card vs CPU, on probabilities
@@ -126,21 +135,26 @@ LADDER = dataclasses.replace(serve.LADDER, structured=True)
 # kernel launches per serve call, by (arch, variant); quantized tables are
 # int8, gathered in plain torch; a structured ladder's 15 masked linears
 # (wq, wk, wv, wo, w1, w2 of two blocks; the tower's three) run the
-# block-pruned kernel, the student's low-rank and grouped ones do not
-_NONE = {"embedding_bag": 0, "fm_interaction": 0, "augru": 0, "block_pruned_matmul": 0}
+# block-pruned kernel, the student's low-rank and grouped ones do not;
+# under the C2 window ("taobao_ssa_c2") each encoder block's attention runs
+# the local-attention kernel (two blocks, one in the distilled student)
+_NONE = {k: 0 for k in serve.KERNELS}
+_SSA = {"baseline": {"embedding_bag": 5}, "quantized": {},
+        "pruned": {"embedding_bag": 5, "block_pruned_matmul": 15},
+        "pruned_quantized": {"block_pruned_matmul": 15}, "distilled": {"embedding_bag": 5}}
 EXPECT_LAUNCHES = {
-    ("taobao_ssa", "baseline"): {**_NONE, "embedding_bag": 5},
-    ("taobao_ssa", "quantized"): _NONE,
-    ("taobao_ssa", "pruned"): {**_NONE, "embedding_bag": 5, "block_pruned_matmul": 15},
-    ("taobao_ssa", "pruned_quantized"): {**_NONE, "block_pruned_matmul": 15},
-    ("taobao_ssa", "distilled"): {**_NONE, "embedding_bag": 5},
+    **{("taobao_ssa", v): {**_NONE, **n} for v, n in _SSA.items()},
+    **{("taobao_ssa_c2", v): {**_NONE, **n, "local_attention": 1 if v == "distilled" else 2}
+       for v, n in _SSA.items()},
     ("fm", "baseline"): {**_NONE, "embedding_bag": 2, "fm_interaction": 1},
     ("fm", "quantized"): {**_NONE, "fm_interaction": 1},
     ("dien", "baseline"): {**_NONE, "embedding_bag": 5, "augru": 1},
 }
+C2_WINDOW = 32  # the C2 path's window: a third of L = 100
 KERNEL_SYMBOL = {"embedding_bag": "embedding_bag_kernel",
                  "fm_interaction": "fm_interaction_kernel", "augru": "augru_kernel",
-                 "block_pruned_matmul": "block_pruned_matmul_kernel"}
+                 "block_pruned_matmul": "block_pruned_matmul_kernel",
+                 "local_attention": "local_attention_kernel", "int8_matmul": "int8_matmul_kernel"}
 
 
 def emit(obj) -> None:
@@ -172,32 +186,6 @@ def phase_build() -> None:
           "cached": rep["cached"], "cache_hit": not rep["built"]})
 
 
-def _time_ms(fn, flush: torch.Tensor, iters: int = KERNEL_ITERS) -> float:
-    """Median device time of one call. Before each: a write that evicts L2
-    (the serve path reads the tables cold too), then a device-side sleep
-    that keeps the stream busy while the host enqueues the call, so the
-    events bracket device work and not the host's launch overhead."""
-    fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        events.append((e0, e1))
-    torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in events]))
-
-
-def _bound(nbytes: float, flops: float) -> dict:
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    return {"bytes": nbytes, "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-
-
 def _bag_case(name, V, d, vocab, B, nnz, weighted, gen, flush):
     """One shape: ids drawn from the `vocab` real rows of a padded [V, d] table."""
     dev = torch.device("cuda")
@@ -221,9 +209,9 @@ def _bag_case(name, V, d, vocab, B, nnz, weighted, gen, flush):
         library = (lambda: F.embedding(idx64[:, 0], table)) if not weighted else None
     else:
         library = lambda: F.embedding_bag(idx64, table, mode="sum", per_sample_weights=w)  # noqa: E731
-    kernel_ms = _time_ms(lambda: eb_ops.embedding_bag_op(table, idx, w), flush)
-    plain_ms = _time_ms(lambda: embedding_bag_ref(table, idx, w), flush)
-    library_ms = _time_ms(library, flush) if library else None
+    kernel_ms = time_ms(lambda: eb_ops.embedding_bag_op(table, idx, w), flush)
+    plain_ms = time_ms(lambda: embedding_bag_ref(table, idx, w), flush)
+    library_ms = time_ms(library, flush) if library else None
 
     # least bytes: each distinct row read once, ids and weights read once, out written once
     uniq = int(torch.unique(idx).numel())
@@ -232,7 +220,7 @@ def _bag_case(name, V, d, vocab, B, nnz, weighted, gen, flush):
         "shape": name, "table": [V, d], "B": B, "nnz": nnz, "weighted": weighted,
         "ok": bool(ok), "max_abs_err": err, "tol": tol,
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "distinct_rows": uniq, **_bound(nbytes, 2 * B * nnz * d),
+        "distinct_rows": uniq, **bound(nbytes, 2 * B * nnz * d),
     }
 
 
@@ -284,18 +272,18 @@ def _fm_interaction_kernel(gen, flush) -> dict:
         raise AssertionError(f"fm_interaction disagrees with its plain version: {checks}")
     B = 512
     e = torch.randn((B, F_, k), generator=gen, device=dev)
-    ms = _time_ms(lambda: fm_ops.fm_interaction_op(e), flush)
-    plain_ms = _time_ms(lambda: fm_interaction_ref(e), flush)
+    ms = time_ms(lambda: fm_ops.fm_interaction_op(e), flush)
+    plain_ms = time_ms(lambda: fm_interaction_ref(e), flush)
     # per value: s += v, q += v·v (3); per factor: S², −, Σ (3); per example: ½ (1)
-    bound = _bound(4 * B * F_ * k + 4 * B, B * (3 * F_ * k + 3 * k + 1))
+    work = bound(4 * B * F_ * k + 4 * B, B * (3 * F_ * k + 3 * k + 1))
     rec = {"name": "fm_interaction", "route": "cuda",
            "source": "src/repro_torch/csrc/fm_interaction.cu",
            "replaces": "src/repro/kernels/fm_interaction/fm_interaction.py:25",
            "launches": None, "ok": True, "max_abs_err": max(c["max_abs_err"] for c in checks),
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
-           "bound_by": bound["bound_by"], "library_ms": None,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
+           "bound_by": work["bound_by"], "library_ms": None,
            "library_none": "no single PyTorch call computes the FM sum-square interaction",
-           "at": f"B={B} F={F_} k={k}", "bytes": bound["bytes"], "flops": bound["flops"],
+           "at": f"B={B} F={F_} k={k}", "bytes": work["bytes"], "flops": work["flops"],
            "checks": checks}
     emit({"phase": "kernels", "kernel": "fm_interaction", **rec})
     return rec
@@ -329,20 +317,20 @@ def _augru_kernel(gen, flush) -> dict:
         raise AssertionError(f"augru disagrees with its plain version: {checks}")
     B = 512
     args = _augru_inputs(B, T, g, gen)
-    ms = _time_ms(lambda: augru_ops.augru_op(*args), flush)
-    plain_ms = _time_ms(lambda: augru_ref(*args), flush, iters=10)
+    ms = time_ms(lambda: augru_ops.augru_op(*args), flush)
+    plain_ms = time_ms(lambda: augru_ref(*args), flush, iters=10)
     # per row and step: h @ wh (2·g·3g) and 16 elementwise ops per unit
     # (r, u: add + exp + add + div each; c: mul, add, tanh; a·u; 1−u, ·h, u·c, +)
     nbytes = 4 * B * T * 3 * g + 4 * g * 3 * g + 4 * B * g + 4 * B * T + B * T + 4 * B * g
-    bound = _bound(nbytes, B * T * (6 * g * g + 16 * g))
+    work = bound(nbytes, B * T * (6 * g * g + 16 * g))
     rec = {"name": "augru", "route": "cuda", "source": "src/repro_torch/csrc/augru.cu",
            "replaces": "src/repro/kernels/augru/augru.py:48",
            "launches": None, "ok": True, "max_abs_err": max(c["max_abs_err"] for c in checks),
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
-           "bound_by": bound["bound_by"], "library_ms": None,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
+           "bound_by": work["bound_by"], "library_ms": None,
            "library_none": ("torch.nn.GRU / cuDNN compute a GRU without the attentional "
                             "update gate, another function"),
-           "at": f"B={B} T={T} g={g}", "bytes": bound["bytes"], "flops": bound["flops"],
+           "at": f"B={B} T={T} g={g}", "bytes": work["bytes"], "flops": work["flops"],
            "checks": checks}
     emit({"phase": "kernels", "kernel": "augru", **rec})
     return rec
@@ -360,9 +348,9 @@ def _bpm_case(name, M, K, N, block_mask, gen, flush):
     ok = bool(torch.allclose(out, ref, rtol=BPM_RTOL, atol=BPM_ATOL))
     mask = expand_block_mask(bm, (K, N))
     w_eff = w * mask
-    kernel_ms = _time_ms(lambda: bpm_ops.block_pruned_matmul_op(x, w, bm), flush)
-    plain_ms = _time_ms(lambda: block_pruned_matmul_ref(x, w, bm), flush)
-    library_ms = _time_ms(lambda: torch.matmul(x, w_eff), flush)
+    kernel_ms = time_ms(lambda: bpm_ops.block_pruned_matmul_op(x, w, bm), flush)
+    plain_ms = time_ms(lambda: block_pruned_matmul_ref(x, w, bm), flush)
+    library_ms = time_ms(lambda: torch.matmul(x, w_eff), flush)
     # least work: the surviving weights once, the columns of x that meet a
     # surviving tile once, the tile mask, the output once; 2 flops a
     # surviving weight and row
@@ -372,7 +360,7 @@ def _bpm_case(name, M, K, N, block_mask, gen, flush):
     return {"shape": name, "M": M, "K": K, "N": N, "block_mask": block_mask,
             "density": bpm_ops.density(bm), "ok": ok, "max_abs_err": err,
             "rtol": BPM_RTOL, "atol": BPM_ATOL, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, **_bound(nbytes, 2 * M * surviving)}
+            "library_ms": library_ms, **bound(nbytes, 2 * M * surviving)}
 
 
 def _block_pruned_matmul_kernel(gen, flush) -> dict:
@@ -407,14 +395,109 @@ def _block_pruned_matmul_kernel(gen, flush) -> dict:
     }
 
 
+def _la_case(name, B, H, L, dh, window, gen, flush, *, causal=False, kv_len=None,
+             dtype=torch.float32, timed=False):
+    """One shape of the windowed attention: q, k, v normal, `kv_len` [B] or
+    None, through `bench_kernels.local_attention_case` (bf16 inputs against
+    the f32 plain version of the same rounded inputs)."""
+    q, k, v = (torch.randn((B, H, L, dh), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    rec = bench_kernels.local_attention_case(q, k, v, window=window, causal=causal,
+                                             kv_len=kv_len, flush=flush if timed else None)
+    return {"shape": name, "B": B, "H": H, "L": L, "dh": dh, **rec}
+
+
+def _local_attention_kernel(gen, flush) -> dict:
+    dev = torch.device("cuda")
+    B = 512
+    hist = torch.randint(25, 101, (B,), generator=gen, device=dev, dtype=torch.int32)  # taobao's
+    ragged = torch.tensor([0, 1, 2, 25, 31, 32, 33, 99, 100] * 4 + [7], dtype=torch.int32,
+                          device=dev)
+    cases = [
+        # the C2 ranker's call at 512 requests: every encoder block's attention
+        _la_case("ranker_512", B, 4, 100, 16, C2_WINDOW, gen, flush, kv_len=hist, timed=True),
+        _la_case("ranker_ragged_kv0", 37, 4, 100, 16, C2_WINDOW, gen, flush, kv_len=ragged),
+        _la_case("ranker_window_1", 37, 4, 100, 16, 1, gen, flush, kv_len=ragged),
+        _la_case("ranker_window_L", 37, 4, 100, 16, 100, gen, flush, kv_len=ragged),
+        _la_case("ranker_bf16", 37, 4, 100, 16, C2_WINDOW, gen, flush, kv_len=ragged,
+                 dtype=torch.bfloat16),
+        _la_case("causal_dh32", 2, 3, 200, 32, 64, gen, flush, causal=True),
+        _la_case("bench_dh64", 8, 1, 2048, 64, 256, gen, flush),
+        _la_case("dh128_bf16_causal", 2, 2, 300, 128, 50, gen, flush, causal=True,
+                 dtype=torch.bfloat16),
+        _la_case("dh64_kv_len", 3, 2, 130, 64, 17, gen, flush,
+                 kv_len=torch.tensor([0, 64, 130], dtype=torch.int32, device=dev)),
+    ]
+    torch.cuda.empty_cache()
+    for c in cases:
+        emit({"phase": "kernels", "kernel": "local_attention", **c})
+    bad = [c["shape"] for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"local_attention disagrees with its plain version at {bad}")
+    head = cases[0]
+    return {
+        "name": "local_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/local_attention.cu",
+        "replaces": "src/repro/kernels/local_attention/local_attention.py:75",
+        "launches": None, "ok": True,
+        "max_abs_err": max(c["max_abs_err"] for c in cases if c["dtype"] == "float32"),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "library_call": "F.scaled_dot_product_attention with the boolean window and key mask",
+        "at": head["shape"], "shapes": cases,
+    }
+
+
+def _int8_case(name, M, K, N, gen, flush, timed=False):
+    """x normal; w at fan-in scale in the C5 weight rep (per-output-channel
+    scales), through `bench_kernels.int8_case`."""
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    rep = quantize_weight(torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5)
+    return {"shape": name, "M": M, "K": K, "N": N,
+            **bench_kernels.int8_case(x, rep, flush=flush if timed else None)}
+
+
+def _int8_matmul_kernel(gen, flush) -> dict:
+    cases = [
+        # the quantized ranker's widest linear (FFN w1) at a serve call of 512
+        # requests; the model itself runs weight-only dequant, not W8A8
+        _int8_case("ranker_w1_51200x64x256", 512 * 100, 64, 256, gen, flush, timed=True),
+        _int8_case("bench_512", 512, 512, 512, gen, flush, timed=True),
+        _int8_case("tower_512x208x200", 512, 208, 200, gen, flush),
+        _int8_case("ragged_513x300x129", 513, 300, 129, gen, flush),
+        _int8_case("one", 1, 1, 1, gen, flush),
+        _int8_case("k_1001", 37, 1001, 65, gen, flush),
+    ]
+    torch.cuda.empty_cache()
+    for c in cases:
+        emit({"phase": "kernels", "kernel": "int8_matmul", **c})
+    bad = [c["shape"] for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"int8_matmul disagrees with its plain version at {bad}")
+    head = cases[0]
+    return {
+        "name": "int8_matmul", "route": "cuda", "source": "src/repro_torch/csrc/int8_matmul.cu",
+        "replaces": "src/repro/kernels/int8_matmul/int8_matmul.py:41",
+        "launches": None, "ok": True, "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "library_call": "torch._int_mm + the epilogue", "at": head["shape"],
+        "at_512": {k: cases[1][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                            "bound_by")},
+        "shapes": cases,
+    }
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    flush = torch.empty(64 * 2**20 // 4, device="cuda")  # 64 MB > the 50 MB L2
+    flush = bench_kernels.l2_flush_buffer("cuda")
     kernels = {
         "embedding_bag": _embedding_bag_kernel(gen, flush),
         "fm_interaction": _fm_interaction_kernel(gen, flush),
         "augru": _augru_kernel(gen, flush),
         "block_pruned_matmul": _block_pruned_matmul_kernel(gen, flush),
+        "local_attention": _local_attention_kernel(gen, flush),
+        "int8_matmul": _int8_matmul_kernel(gen, flush),
     }
     del flush
     torch.cuda.empty_cache()
@@ -563,10 +646,9 @@ def phase_ladder():
         prev = stage_end[stage]
     seconds["serving_trees"] = t_ladder - prev
     fine = 3 * LADDER.finetune_steps + LADDER.qat_steps  # steps through the masked linears
-    expect_ladder = {"embedding_bag": 5 * fine + 10 * LADDER.distill_steps,  # teacher + student
-                     "block_pruned_matmul": 15 * fine, "fm_interaction": 0, "augru": 0}
-    expect_pre = {"embedding_bag": 5 * serve.TRAIN_STEPS, "block_pruned_matmul": 0,
-                  "fm_interaction": 0, "augru": 0}
+    expect_ladder = {**_NONE, "embedding_bag": 5 * fine + 10 * LADDER.distill_steps,  # teacher
+                     "block_pruned_matmul": 15 * fine}  # + student
+    expect_pre = {**_NONE, "embedding_bag": 5 * serve.TRAIN_STEPS}
     stats = variant_stats(ladder)
     emit({"phase": "ladder", "arch": "taobao_ssa", "ladder": dataclasses.asdict(LADDER),
           "train_steps": serve.TRAIN_STEPS, "batch": serve.TRAIN_BATCH,
@@ -700,6 +782,96 @@ def drive_arch(arch: str, variants=None) -> dict:
     return launches
 
 
+def phase_serve_c2() -> dict:
+    """taobao_ssa under the paper's C2 window (`C2_WINDOW`) through the
+    launcher's own entry point, `serve.run`, at full width: it pretrains
+    (every step's two attentions through the local-attention kernel), runs
+    the structured ladder and serves the five variants at every size. The
+    launches are counted from 0 over the whole call and must equal
+    training's plus serving's, each worked out from the steps and calls.
+    Then, from the launcher's own pretrained parameters (pretraining
+    repeats bit for bit): the card against the CPU on `baseline` and
+    `quantized`, a window of L = 100 against the unwindowed model, and a
+    profile of `baseline` at 1 and 512. Returns the launches."""
+    t0 = time.perf_counter()
+    base_cfg = get_config("taobao_ssa")
+    cfg = with_attn_window(base_cfg, C2_WINDOW)
+    dev = torch.device("cuda")
+    serve.reset_launch_counts()
+    records = serve.run(cfg, sizes=SIZES, device=dev, reps=SERVE_REPS, ladder=LADDER)
+    torch.cuda.synchronize()
+    launches = serve.launch_counts()
+    run_s = time.perf_counter() - t0
+    *timed, stats = records
+    medians = {}
+    for r in timed:
+        v, n = r["variant"], r["size"]
+        medians.setdefault(v, {})[n] = r["median_ms"]
+        emit({"phase": "serve", "arch": "taobao_ssa_c2", "attn_window": C2_WINDOW, **r})
+        if r["launches_per_call"] != EXPECT_LAUNCHES[("taobao_ssa_c2", v)]:
+            raise AssertionError(f"taobao_ssa_c2/{v}@{n}: kernel launches per call "
+                                 f"{r['launches_per_call']}, expected "
+                                 f"{EXPECT_LAUNCHES[('taobao_ssa_c2', v)]}")
+    calls = (serve.WARMUP + SERVE_REPS) * len(SIZES)  # serve calls of each variant
+    serving = {k: calls * sum(EXPECT_LAUNCHES[("taobao_ssa_c2", v)][k] for v in medians)
+               for k in _NONE}
+    fine = 3 * LADDER.finetune_steps + LADDER.qat_steps  # steps through the masked linears
+    training = {**_NONE,
+                # distillation collects attention probabilities: the plain softmax
+                "local_attention": 2 * (serve.TRAIN_STEPS + fine),
+                "embedding_bag": 5 * (serve.TRAIN_STEPS + fine) + 10 * LADDER.distill_steps,
+                "block_pruned_matmul": 15 * fine}
+    expect = {k: training[k] + serving[k] for k in _NONE}
+    emit({"phase": "serve_c2_launches", "attn_window": C2_WINDOW, "launches": launches,
+          "expected_training": training, "expected_serving": serving, "seconds": run_s,
+          "variant_stats": stats["variant_stats"]})
+    if launches != expect:
+        raise AssertionError(f"C2 path launches {launches}, expected {expect}")
+
+    params, _ = serve.base_params(cfg, dev)
+    batches = serve.request_batches(cfg, SIZES, dev)
+    variants = serve.build_variants(params, ("baseline", "quantized"), cfg)
+    phase_card_vs_cpu("taobao_ssa_c2", cfg, variants, batches[max(SIZES)])
+    wide = with_attn_window(base_cfg, base_cfg.seq_len)
+    for v, vparams in variants.items():
+        full = api.serve(vparams, batches[max(SIZES)], base_cfg)
+        windowed = api.serve(vparams, batches[max(SIZES)], wide)
+        diff = float((full - windowed).abs().max())
+        emit({"phase": "window_L_vs_full", "variant": v, "attn_window": wide.attn_window,
+              "max_abs_diff": diff, "tol": PROB_TOL})
+        if not diff <= PROB_TOL:
+            raise AssertionError(f"{v}: a window of L and full attention differ by {diff}")
+    phase_profile("taobao_ssa_c2", "baseline", cfg, variants["baseline"], batches,
+                  medians["baseline"], (1, max(SIZES)))
+    emit({"phase": "arch_done", "arch": "taobao_ssa_c2", "seconds": time.perf_counter() - t0,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del params, variants, batches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return launches
+
+
+def phase_bench() -> dict:
+    """`python -m repro_torch.launch.bench_kernels`'s rows: all six kernels
+    at `benchmarks/bench_kernels.py`'s shapes. Returns the launches."""
+    t0 = time.perf_counter()
+    serve.reset_launch_counts()
+    rows = bench_kernels.run("cuda", seed=0)
+    launches = serve.launch_counts()
+    for r in rows:
+        emit({"phase": "bench_kernels", **r})
+    emit({"phase": "bench_kernels_launches", "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    bad = [r["kernel"] for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"bench_kernels: {bad} disagree with their plain versions")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"bench_kernels launched no {missing} kernel")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_device()
@@ -715,6 +887,8 @@ def main() -> None:
     for arch in PORTED:
         by_path[f"serve_{arch}"] = drive_arch(arch, ladder_variants if arch == "taobao_ssa" else None)
         ladder_variants = None
+    by_path["serve_taobao_ssa_c2"] = phase_serve_c2()
+    by_path["bench_kernels"] = phase_bench()
     for name, rec in kernels.items():
         rec["launches_by_path"] = {path: n[name] for path, n in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -60,6 +60,23 @@ class RecSysConfig:
         return emb  # towers counted by the model itself; tables dominate
 
 
+@dataclasses.dataclass(frozen=True)
+class WindowedRecSysConfig(RecSysConfig):
+    """A `RecSysConfig` that carries the paper's C2 local-attention window
+    (`attn_window`, read by `models/recsys/taobao_ssa.cfg_window`). `repro`
+    reads the same attribute from whatever config object carries it; its
+    `RecSysConfig`, like this one, has no such field."""
+
+    attn_window: int = 0
+
+
+def with_attn_window(cfg: RecSysConfig, window: int) -> WindowedRecSysConfig:
+    """`cfg` with the C2 window `window` (0 = none); `dataclasses.replace`
+    keeps it, so the distilled student's config keeps it too."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(RecSysConfig)}
+    return WindowedRecSysConfig(**fields, attn_window=int(window))
+
+
 ARCH_NAMES = (
     "command_r_35b",
     "chatglm3_6b",

@@ -20,8 +20,12 @@ quantization of those parameters (`core/quantization.quantize_tree`). The
 trained variants (`pruned`, `pruned_quantized`, `distilled`) come from
 `run_ladder` with 10 fine-tune, 10 QAT and 15 distillation steps on the
 batches of seed 1; `--structured` prunes in 128 x 128 tiles, whose linears
-then run the block-pruned kernel. fm and dien have no ladder and serve
-their weights as they are; `dien` has no quantized variant either (see
+then run the block-pruned kernel. A taobao_ssa config that carries the
+paper's C2 local-attention window (|i−j| < W), as
+`run(with_attn_window(get_config("taobao_ssa"), W))` gives it, runs the
+local-attention kernel in pretraining, in the ladder's fine-tuning and in
+every serve call. fm and dien have no ladder and serve their weights as
+they are; `dien` has no quantized variant either (see
 `UNSERVABLE`). Requests come from `criteo_batches` for `fm` and from
 `taobao_batches` otherwise. The hand-off of the curves to the serving
 simulator comes with a later slice.
@@ -51,6 +55,8 @@ from repro_torch.kernels.augru import ops as augru_ops
 from repro_torch.kernels.block_pruned_matmul import ops as block_pruned_matmul_ops
 from repro_torch.kernels.embedding_bag import ops as embedding_bag_ops
 from repro_torch.kernels.fm_interaction import ops as fm_interaction_ops
+from repro_torch.kernels.int8_matmul import ops as int8_matmul_ops
+from repro_torch.kernels.local_attention import ops as local_attention_ops
 from repro_torch.launch.train import make_data
 from repro_torch.models.common import from_numpy_tree, init_params
 from repro_torch.models.recsys import api as rec_api
@@ -82,7 +88,8 @@ WARMUP = 3  # untimed calls at each size before the timed ones
 
 # every kernel wrapper of the port, by kernel name; each counts its launches
 KERNELS = {"embedding_bag": embedding_bag_ops, "fm_interaction": fm_interaction_ops,
-           "augru": augru_ops, "block_pruned_matmul": block_pruned_matmul_ops}
+           "augru": augru_ops, "block_pruned_matmul": block_pruned_matmul_ops,
+           "local_attention": local_attention_ops, "int8_matmul": int8_matmul_ops}
 
 
 def launch_counts() -> Dict[str, int]:

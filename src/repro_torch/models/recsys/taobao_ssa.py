@@ -11,6 +11,14 @@ embedding.py). The arithmetic keeps `repro`'s order: scores are
 `einsum(q, k) / sqrt(dh)`, masked keys get -1e30, the softmax is f32, the
 layer norm uses the population variance, and the pool divides by
 `clip(Σmask, 1)`.
+
+The paper's C2 local-attention window (|i−j| < window) applies when the
+config carries a non-zero `attn_window` attribute (`cfg_window`), as in
+`repro`; `RecSysConfig` has no such field, so a caller's config adds it
+(`configs/base.with_attn_window`). The windowed attention then runs the
+hand-written local-attention kernel (`kernels/local_attention`) with the
+history's key mask, except where the caller collects the attention
+probabilities (the C3 distillation KL), which the kernel does not return.
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ import torch
 
 from repro_torch.configs.base import RecSysConfig
 from repro_torch.core.lightweight import linear
+from repro_torch.core.sparse_attention import local_global_mask
+from repro_torch.kernels.local_attention.ops import windowed_attention_op
 from repro_torch.models.common import ParamDef
 from repro_torch.models.recsys.embedding import _take_rows, field_lookup, named_table_defs
 from repro_torch.models.recsys.rec_layers import bce_with_logits, mlp_apply, mlp_defs
@@ -54,21 +64,32 @@ def _ln(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + 1e-5) * scale
 
 
-def _encoder_block(p, x: torch.Tensor, mask: torch.Tensor, n_heads: int):
+def _encoder_block(p, x: torch.Tensor, mask: torch.Tensor, n_heads: int, *, window: int = 0,
+                   kv_len=None, collect_attn: bool = False):
     """Pre-LN MHA + FFN. Returns (x, attention probs [B,H,L,L]) — the probs
-    feed the C3 distillation KL. `repro`'s optional C2 window mask is left
-    out: its width comes from an `attn_window` attribute that
-    `RecSysConfig` does not have, so no config reaches it."""
+    feed the C3 distillation KL. `window`>0 applies the paper's C2 local
+    attention mask (|i-j| < window); unless `collect_attn`, that attention
+    runs the local-attention kernel over the keys j < `kv_len` (the
+    history lengths, which `mask` is made of), and the probs are None."""
     B, L, d = x.shape
     dh = d // n_heads
     h = _ln(x, p["ln1"])
     q = linear(p["wq"], h).reshape(B, L, n_heads, dh)
     k = linear(p["wk"], h).reshape(B, L, n_heads, dh)
     v = linear(p["wv"], h).reshape(B, L, n_heads, dh)
-    s = torch.einsum("blhd,bmhd->bhlm", q, k) / math.sqrt(dh)
-    s = torch.where(mask[:, None, None, :], s, -1e30)  # key mask
-    probs = torch.softmax(s.to(torch.float32), dim=-1)
-    o = torch.einsum("bhlm,bmhd->blhd", probs.to(v.dtype), v).reshape(B, L, d)
+    if window and not collect_attn:
+        heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]  # [B,H,L,dh]
+        o = windowed_attention_op(*heads, window=window, kv_len=kv_len)
+        o = o.transpose(1, 2).reshape(B, L, d)
+        probs = None
+    else:
+        s = torch.einsum("blhd,bmhd->bhlm", q, k) / math.sqrt(dh)
+        valid = mask[:, None, None, :]  # key mask
+        if window:
+            valid = valid & local_global_mask(L, window, device=x.device)[None, None]
+        s = torch.where(valid, s, -1e30)
+        probs = torch.softmax(s.to(torch.float32), dim=-1)
+        o = torch.einsum("bhlm,bmhd->blhd", probs.to(v.dtype), v).reshape(B, L, d)
     x = x + linear(p["wo"], o)
     h2 = _ln(x, p["ln2"])
     x = x + linear(p["w2"], torch.relu(linear(p["w1"], h2)))
@@ -82,15 +103,25 @@ def encode_history(params, batch, cfg: RecSysConfig, collect_attn: bool = False)
     ca = field_lookup(t, cfg, "hist_category", batch["hist_category"])
     x = it + ca + params["pos"][None]
     L = x.shape[1]
-    mask = torch.arange(L, device=x.device)[None] < batch["hist_len"][:, None]
+    hist_len = batch["hist_len"]
+    mask = torch.arange(L, device=x.device)[None] < hist_len[:, None]
+    window = cfg_window(cfg)
+    kv_len = hist_len.to(torch.int32) if window else None
     attns = []
     for l in range(cfg.n_attn_layers):
-        x, probs = _encoder_block(params[f"enc{l}"], x, mask, cfg.n_heads)
+        x, probs = _encoder_block(params[f"enc{l}"], x, mask, cfg.n_heads, window=window,
+                                  kv_len=kv_len, collect_attn=collect_attn)
         if collect_attn:
             attns.append(probs)
     m = mask[..., None].to(x.dtype)
     pooled = torch.sum(x * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1.0)
     return pooled, attns
+
+
+def cfg_window(cfg) -> int:
+    """The C2 window, carried by an optional `attn_window` attribute so the
+    config dataclass stays family-generic, as in `repro`; 0 = none."""
+    return getattr(cfg, "attn_window", 0) or 0
 
 
 def _tower_logits(params, user, cand, pooled, cfg):

@@ -1,6 +1,6 @@
 """The Hopper kernels (embedding_bag, fm_interaction, augru,
-block_pruned_matmul) against their plain PyTorch versions, and the
-gradients through them, on the card.
+block_pruned_matmul, local_attention, int8_matmul) against their plain
+PyTorch versions, and the gradients through them, on the card.
 
 Every test here is marked `cuda` and skips without an NVIDIA card: a CUDA
 kernel has no CPU mode. The file imports no JAX (the card's machine has
@@ -19,7 +19,13 @@ Tolerances:
   (f32 products of up to 300 terms in another order); its gradients and
   embedding_bag's table gradients against the CPU's within 1e-4 of their
   largest entry (matmul sums in another order); the table gradient of a
-  lookup alone is the CPU's to the bit (each row summed in batch order).
+  lookup alone is the CPU's to the bit (each row summed in batch order);
+- local_attention: 1e-5 absolute in f32 (outputs are means of O(1)
+  values; f32 softmax in another order), 2e-2 in bf16 against the f32
+  plain version of the same inputs, as the JAX kernel test;
+- int8_matmul: the int32 accumulator equal to the plain version's (unit
+  scales make it the output, exact in f32 below 2^24), the Pallas
+  epilogue of it to the bit, `repro`'s ref within rtol 1e-6, atol 1e-4.
 """
 import pytest
 
@@ -35,6 +41,12 @@ from repro_torch.kernels.embedding_bag import ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.fm_interaction import ops as fm_ops  # noqa: E402
 from repro_torch.kernels.fm_interaction.ref import fm_interaction_ref  # noqa: E402
+from repro_torch.kernels.int8_matmul import ops as int8_ops  # noqa: E402
+from repro_torch.kernels.int8_matmul.ref import (  # noqa: E402
+    int8_matmul_ref, int32_product, pallas_epilogue, quantize_activations,
+)
+from repro_torch.kernels.local_attention import ops as la_ops  # noqa: E402
+from repro_torch.kernels.local_attention.ref import local_attention_ref  # noqa: E402
 
 # taobao_ssa's widths (16, 64), FM's (1 with 39 ids a bag, 10) and DIEN's (18)
 SHAPES = [(4, 5, 16), (16, 10, 32), (8, 1, 64), (32, 1, 16), (32, 1, 64),
@@ -280,3 +292,200 @@ def test_kernels_without_a_backward_raise_under_grad(cuda_device):
         augru_ops.augru_op(*args)
     with torch.no_grad():
         assert augru_ops.augru_op(*args).shape == (2, g)
+
+
+# (B, H, L, dh, window, causal, kv_len): the C2 ranker's call (L 100, dh 16,
+# window 32, history lengths from 0 to L), ragged L, causal, window 1 and
+# >= L, the kernel benchmark's dh 64 at L 2048, dh 128
+LA_SHAPES = [
+    (64, 4, 100, 16, 32, False, "hist"), (37, 4, 100, 16, 32, False, "ragged"),
+    (37, 4, 100, 16, 1, False, "ragged"), (37, 4, 100, 16, 100, False, "ragged"),
+    (3, 2, 77, 32, 5, True, None), (2, 1, 2048, 64, 256, False, None),
+    (1, 2, 300, 128, 50, True, None), (3, 2, 130, 64, 17, False, "zero_one_full"),
+    (2, 3, 1, 16, 4, False, None), (1, 1, 65, 32, 64, True, None),
+]
+
+
+def _la_inputs(B, H, L, dh, kv, device, dtype=torch.float32, seed=0):
+    gen = torch.Generator().manual_seed(seed + B + L + dh)
+    q, k, v = (torch.randn((B, H, L, dh), generator=gen).to(dtype).to(device) for _ in range(3))
+    if kv is None:
+        return q, k, v, None
+    if kv == "hist":
+        lens = torch.randint(L // 4, L + 1, (B,), generator=gen)
+    elif kv == "ragged":
+        lens = torch.tensor(([0, 1, 2, 25, 31, 32, 33, 99, 100] * 5)[:B])
+    else:
+        lens = torch.tensor([0, 1, L])[:B]
+    return q, k, v, lens.to(torch.int32).to(device)
+
+
+def _la_plain(q, k, v, window, causal, kv_len):
+    B, H, L, dh = q.shape
+    rows = None if kv_len is None else kv_len.repeat_interleave(H)
+    flat = [t.float().reshape(B * H, L, dh) for t in (q, k, v)]
+    return local_attention_ref(*flat, window=window, causal=causal,
+                               kv_len=rows).reshape(B, H, L, dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L,dh,window,causal,kv", LA_SHAPES)
+def test_local_attention_matches_plain_version_on_card(cuda_device, B, H, L, dh, window, causal,
+                                                       kv):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, kv_len = _la_inputs(B, H, L, dh, kv, cuda_device)
+    before = la_ops.launches
+    out = la_ops.windowed_attention_op(q, k, v, window=window, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert la_ops.launches == before + 1 and out.shape == q.shape and out.dtype == q.dtype
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, _la_plain(q, k, v, window, causal, kv_len), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L,dh,window,causal,kv", [LA_SHAPES[1], LA_SHAPES[4], LA_SHAPES[6]])
+def test_local_attention_in_bf16_on_card(cuda_device, B, H, L, dh, window, causal, kv):
+    q, k, v, kv_len = _la_inputs(B, H, L, dh, kv, cuda_device, dtype=torch.bfloat16)
+    out = la_ops.windowed_attention_op(q, k, v, window=window, causal=causal, kv_len=kv_len)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), _la_plain(q, k, v, window, causal, kv_len),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_local_attention_rows_without_a_key_are_the_mean_of_v_on_card(cuda_device):
+    q, k, v, _ = _la_inputs(2, 4, 100, 16, None, cuda_device)
+    kv_len = torch.tensor([0, 25], dtype=torch.int32, device=cuda_device)
+    out = la_ops.windowed_attention_op(q, k, v, window=32, kv_len=kv_len)
+    mean = v.mean(dim=2, keepdim=True)
+    torch.testing.assert_close(out[0], mean[0].expand(4, 100, 16), rtol=0, atol=1e-6)
+    # rows 56..99 of a history of 25 reach no key j < 25 within |i - j| < 32
+    torch.testing.assert_close(out[1, :, 56:], mean[1].expand(4, 44, 16), rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_local_attention_gradients_on_card_match_the_cpu(cuda_device):
+    q, k, v, kv_len = _la_inputs(16, 4, 100, 16, "hist", "cpu")
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [t.detach().to(dev, copy=True).requires_grad_(True) for t in (q, k, v)]
+        before = la_ops.launches
+        out = la_ops.windowed_attention_op(*leaves, window=32, kv_len=kv_len.to(dev))
+        (out * g.to(dev)).sum().backward()
+        assert la_ops.launches == before + (dev != "cpu")
+        grads[str(dev)] = [t.grad for t in leaves]
+    for name, card, host in zip("qkv", grads[str(cuda_device)], grads["cpu"]):
+        _close_to_cpu(card, host, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["head_dim", "non_contiguous", "kv_len_on_cpu", "dtype"])
+def test_local_attention_refuses_what_the_kernel_does_not_take_on_card(cuda_device, case):
+    q, k, v, kv_len = _la_inputs(2, 2, 40, 16, "ragged", cuda_device)
+    if case == "head_dim":
+        q, k, v = (torch.randn(2, 2, 40, 24, device=cuda_device) for _ in range(3))
+    elif case == "non_contiguous":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "kv_len_on_cpu":
+        kv_len = kv_len.cpu()
+    elif case == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    before = la_ops.launches
+    with pytest.raises((ValueError, TypeError)):
+        la_ops.windowed_attention_op(q, k, v, window=4, kv_len=kv_len)
+    assert la_ops.launches == before
+
+
+@pytest.mark.cuda
+def test_windowed_taobao_ssa_on_card_matches_the_cpu(cuda_device):
+    """The C2 ranker at a small size: serve probabilities within 1e-5 of the
+    CPU's, two local-attention launches a call, the loss gradient of every
+    leaf within 1e-4 of its largest entry."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, with_attn_window
+    from repro_torch.data.synthetic import taobao_batches
+    from repro_torch.launch.serve import make_params
+    from repro_torch.models.common import tree_from_leaves, tree_leaves
+    from repro_torch.models.recsys import api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("taobao_ssa")
+    cfg = with_attn_window(dataclasses.replace(cfg, fields=tuple(
+        dataclasses.replace(f, vocab=min(f.vocab, 1000)) for f in cfg.fields), seq_len=20), 4)
+    params = make_params(cfg, torch.device("cpu"), seed=0)
+    batch = next(taobao_batches(cfg, 64, 1, seed=3))
+    batch["hist_len"][:3] = [0, 1, 2]
+    probs, grads = {}, {}
+    for dev in ("cpu", cuda_device):
+        p = dict(tree_leaves(params))
+        leaves = {k: v.detach().to(dev, copy=True).requires_grad_(True) for k, v in p.items()}
+        tree = tree_from_leaves(leaves.items())
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        before = la_ops.launches
+        with torch.no_grad():
+            probs[str(dev)] = api.serve(tree, b, cfg).cpu()
+        loss, _ = api.loss(tree, b, cfg)
+        loss.backward()
+        assert la_ops.launches == before + (4 if dev != "cpu" else 0)
+        grads[str(dev)] = {k: t.grad for k, t in leaves.items()}
+    assert float((probs[str(cuda_device)] - probs["cpu"]).abs().max()) <= 1e-5
+    for path, host in grads["cpu"].items():
+        _close_to_cpu(grads[str(cuda_device)][path], host, path)
+
+
+# (M, K, N): the quantized ranker's FFN w1 at 512 requests, the kernel
+# benchmark's 512³, the tower, ragged edges, one element, a K past 1000
+INT8_SHAPES = [(51200, 64, 256), (512, 512, 512), (512, 208, 200), (513, 300, 129), (1, 1, 1),
+               (37, 1001, 65), (100, 64, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", INT8_SHAPES)
+def test_int8_matmul_matches_plain_version_on_card(cuda_device, M, K, N):
+    gen = torch.Generator().manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=gen).to(cuda_device)
+    w = (torch.randn((N, K), generator=gen) * 0.1).to(cuda_device)
+    a_q, a_s = quantize_activations(x)
+    w_q, w_s = quantize_activations(w)
+    b_q = w_q.T.contiguous()
+    acc = int32_product(a_q, b_q)
+    before = int8_ops.launches
+    unit = int8_ops.int8_matmul_op(a_q, b_q, torch.ones(M, device=cuda_device),
+                                   torch.ones(N, device=cuda_device))
+    out = int8_ops.quantized_linear(x, {"q": b_q, "s": w_s})
+    torch.cuda.synchronize()
+    assert int8_ops.launches == before + 2 and out.shape == (M, N)
+    assert torch.equal(unit, acc.float())
+    assert torch.equal(out, pallas_epilogue(acc, a_s, w_s))
+    torch.testing.assert_close(out, int8_matmul_ref(a_q, b_q, a_s, w_s), rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_accumulates_the_extremes_exactly_on_card(cuda_device):
+    a = torch.full((70, 1000), 127, dtype=torch.int8, device=cuda_device)
+    b = torch.full((1000, 70), -127, dtype=torch.int8, device=cuda_device)
+    b[::3] = 127
+    ones = torch.ones(70, device=cuda_device)
+    out = int8_ops.int8_matmul_op(a, b, ones, ones)
+    assert torch.equal(out, int32_product(a, b).float())
+
+
+@pytest.mark.cuda
+def test_int8_matmul_has_no_backward_and_refuses_bad_inputs_on_card(cuda_device):
+    x = torch.randn(8, 16, device=cuda_device, requires_grad=True)
+    rep = {"q": torch.ones(16, 4, dtype=torch.int8, device=cuda_device),
+           "s": torch.ones(4, device=cuda_device)}
+    with pytest.raises(RuntimeError, match="no backward"):
+        int8_ops.quantized_linear(x, rep)
+    with torch.no_grad():
+        assert int8_ops.quantized_linear(x, rep).shape == (8, 4)
+    before = int8_ops.launches
+    with pytest.raises((ValueError, TypeError)):
+        int8_ops.int8_matmul_op(torch.ones(8, 16, dtype=torch.int32, device=cuda_device),
+                                rep["q"], torch.ones(8, device=cuda_device), rep["s"])
+    with pytest.raises(ValueError):
+        int8_ops.int8_matmul_op(torch.ones(8, 16, dtype=torch.int8, device=cuda_device),
+                                rep["q"], torch.ones(8), rep["s"])
+    assert int8_ops.launches == before

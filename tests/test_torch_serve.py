@@ -30,7 +30,8 @@ def _tiny(arch="taobao_ssa"):
         seq_len=12,
     )
 
-NO_LAUNCHES = {"embedding_bag": 0, "fm_interaction": 0, "augru": 0, "block_pruned_matmul": 0}
+NO_LAUNCHES = {"embedding_bag": 0, "fm_interaction": 0, "augru": 0, "block_pruned_matmul": 0,
+               "local_attention": 0, "int8_matmul": 0}
 SHORT_LADDER = LadderConfig(finetune_steps=2, qat_steps=2, distill_steps=2)
 
 
@@ -204,3 +205,22 @@ def test_unported_arch_and_interaction_raise():
         get_config("no_such_arch")
     with pytest.raises(NotImplementedError, match="DIN"):
         api.module_for(dataclasses.replace(_tiny(), interaction="target_attn"))
+
+
+def test_windowed_taobao_ssa_serves_its_five_variants_on_cpu():
+    """The C2 window rides on the config through the launcher: pretraining,
+    the ladder (its distilled student keeps the window) and every variant."""
+    from repro_torch.configs.base import with_attn_window
+    from repro_torch.models.recsys.taobao_ssa import cfg_window
+
+    cfg = with_attn_window(_tiny(), 4)
+    recs = serve.run(cfg, sizes=(1, 8), device="cpu", reps=10, train_steps=3,
+                     ladder=SHORT_LADDER)
+    *timed, stats = recs
+    assert [(r["variant"], r["size"]) for r in timed] == [
+        (v, n) for v in serve.VARIANTS for n in (1, 8)]
+    for r in timed:
+        assert r["launches_per_call"] == NO_LAUNCHES  # CPU tensors take the plain path
+        assert math.isfinite(r["median_ms"]) and 0 < r["median_ms"] <= r["p90_ms"]
+    assert set(stats["variant_stats"]) == set(serve.VARIANTS)
+    assert cfg_window(serve.variant_cfg("distilled", cfg)) == 4

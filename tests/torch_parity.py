@@ -10,9 +10,11 @@ import torch
 
 import torch_workers  # noqa: F401  (one torch thread per xdist worker)
 from conftest import reduced_recsys
+from repro.configs.base import RecSysConfig as JaxRecSysConfig
 from repro.models.common import init_params as jax_init_params
 from repro.models.recsys import api as jax_api
 from repro_torch.configs.base import get_config as torch_get_config
+from repro_torch.configs.base import with_attn_window
 from repro_torch.models.common import from_numpy_tree
 
 
@@ -54,3 +56,20 @@ def jnp_batch(batch):
 
 def torch_batch(batch):
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class JaxWindowedConfig(JaxRecSysConfig):
+    """`repro`'s config with the C2 window: its model reads `attn_window`
+    from whatever config carries it (`taobao_ssa.cfg_window`), and its
+    `RecSysConfig` has no such field."""
+
+    attn_window: int = 0
+
+
+def windowed_pair(window: int, seq_len: int = 20):
+    """`small_configs` with the C2 window in both packages (the port's
+    through `configs.base.with_attn_window`)."""
+    jcfg, tcfg = small_configs(seq_len)
+    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(JaxRecSysConfig)}
+    return JaxWindowedConfig(**fields, attn_window=window), with_attn_window(tcfg, window)
