@@ -18,7 +18,8 @@ Phases, one JSON line each:
    PyTorch library call: embedding_bag at taobao_ssa's, FM's and DIEN's
    lookups, fm_interaction at FM's B=512, augru at DIEN's B=512 and at a
    ragged B, block_pruned_matmul at every masked linear of a structured
-   taobao_ssa serve call of 512 requests and at densities 0 and 1,
+   taobao_ssa serve call of 512 requests and at densities 0 and 1 (also
+   against an f64 product, and launched twice for the same bits),
    local_attention at the C2 ranker's call of 512 requests (BH 2048,
    L 100, dh 16, window 32, the history key mask) and at ragged, causal,
    bf16, dh 32/64/128 and no-valid-key cases, int8_matmul at the ranker's
@@ -74,7 +75,6 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.base import PORTED, get_config, with_attn_window  # noqa: E402
 from repro_torch.core import pruning  # noqa: E402
@@ -83,12 +83,7 @@ from repro_torch.core.quantization import quantize_weight  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.augru import ops as augru_ops  # noqa: E402
 from repro_torch.kernels.augru.ref import augru_ref  # noqa: E402
-from repro_torch.kernels.block_pruned_matmul import ops as bpm_ops  # noqa: E402
-from repro_torch.kernels.block_pruned_matmul.ref import (  # noqa: E402
-    block_pruned_matmul_ref, expand_block_mask,
-)
-from repro_torch.kernels.embedding_bag import ops as eb_ops  # noqa: E402
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
+from repro_torch.kernels.block_pruned_matmul import block_pruned_matmul as bpm_kernel  # noqa: E402
 from repro_torch.kernels.fm_interaction import ops as fm_ops  # noqa: E402
 from repro_torch.kernels.fm_interaction.ref import fm_interaction_ref  # noqa: E402
 from repro_torch.launch import bench_kernels, serve  # noqa: E402
@@ -102,11 +97,9 @@ from repro_torch.training.train_loop import make_train_step  # noqa: E402
 SIZES = (1, 8, 32, 128, 512)
 SERVE_REPS = 20
 PROFILE_CALLS = 10
-TOL_REL = 1e-5
 PROB_TOL = 1e-5  # card vs CPU, on probabilities
 FM_RTOL, FM_ATOL = 1e-4, 1e-3  # the JAX kernel test's: (Σe)² − Σe² cancels
 AUGRU_TOL = 1e-5  # absolute: h lies in (-1, 1)
-BPM_RTOL, BPM_ATOL = 1e-5, 1e-4  # the JAX kernel test's: f32 sums of up to 256 terms
 # train vs CPU, from parameters that the card's pretraining gives bit for
 # bit in every run (its table gradients sum in batch order). SGD at lr 1
 # without momentum: the update u is the clipped gradient. Where no ReLU or
@@ -153,7 +146,7 @@ EXPECT_LAUNCHES = {
 C2_WINDOW = 32  # the C2 path's window: a third of L = 100
 KERNEL_SYMBOL = {"embedding_bag": "embedding_bag_kernel",
                  "fm_interaction": "fm_interaction_kernel", "augru": "augru_kernel",
-                 "block_pruned_matmul": "block_pruned_matmul_kernel",
+                 "block_pruned_matmul": "block_pruned_matmul_",  # tall, small and rows
                  "local_attention": "local_attention_kernel", "int8_matmul": "int8_matmul_kernel"}
 
 
@@ -187,41 +180,14 @@ def phase_build() -> None:
 
 
 def _bag_case(name, V, d, vocab, B, nnz, weighted, gen, flush):
-    """One shape: ids drawn from the `vocab` real rows of a padded [V, d] table."""
+    """One shape: ids drawn from the `vocab` real rows of a padded [V, d]
+    table, through `bench_kernels.embedding_bag_case`."""
     dev = torch.device("cuda")
     table = torch.randn((V, d), generator=gen, device=dev)
     idx = torch.randint(0, vocab, (B, nnz), generator=gen, device=dev, dtype=torch.int32)
     w = torch.rand((B, nnz), generator=gen, device=dev) if weighted else None
-
-    out = eb_ops.embedding_bag_op(table, idx, w)
-    ref = embedding_bag_ref(table, idx, w)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    if nnz == 1:
-        ok = torch.equal(out, ref) and (weighted or torch.equal(out, table[idx[:, 0].long()]))
-        tol = 0.0
-    else:
-        tol = TOL_REL * float(ref.abs().max())
-        ok = err <= tol
-
-    idx64 = idx.long()
-    if nnz == 1:
-        library = (lambda: F.embedding(idx64[:, 0], table)) if not weighted else None
-    else:
-        library = lambda: F.embedding_bag(idx64, table, mode="sum", per_sample_weights=w)  # noqa: E731
-    kernel_ms = time_ms(lambda: eb_ops.embedding_bag_op(table, idx, w), flush)
-    plain_ms = time_ms(lambda: embedding_bag_ref(table, idx, w), flush)
-    library_ms = time_ms(library, flush) if library else None
-
-    # least bytes: each distinct row read once, ids and weights read once, out written once
-    uniq = int(torch.unique(idx).numel())
-    nbytes = uniq * d * 4 + idx.numel() * 4 + (w.numel() * 4 if weighted else 0) + B * d * 4
-    return {
-        "shape": name, "table": [V, d], "B": B, "nnz": nnz, "weighted": weighted,
-        "ok": bool(ok), "max_abs_err": err, "tol": tol,
-        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "distinct_rows": uniq, **bound(nbytes, 2 * B * nnz * d),
-    }
+    return {"shape": name, "table": [V, d], "B": B, "nnz": nnz, "weighted": weighted,
+            **bench_kernels.embedding_bag_case(table, idx, w, flush=flush)}
 
 
 def _embedding_bag_kernel(gen, flush) -> dict:
@@ -251,7 +217,7 @@ def _embedding_bag_kernel(gen, flush) -> dict:
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "at": head["shape"], "shapes": cases,
+        "vs_library": head["vs_library"], "at": head["shape"], "shapes": cases,
     }
 
 
@@ -336,42 +302,30 @@ def _augru_kernel(gen, flush) -> dict:
     return rec
 
 
-def _bpm_case(name, M, K, N, block_mask, gen, flush):
-    """One masked linear: x [M,K] @ (w ⊙ expand(block_mask)), w at fan-in scale."""
+def _bpm_case(name, M, K, N, block_mask, gen, flush, alt_plans=None):
+    """One masked linear: x [M,K] @ (w ⊙ expand(block_mask)), w at fan-in
+    scale, through `bench_kernels.block_pruned_matmul_case`."""
     dev = torch.device("cuda")
     x = torch.randn((M, K), generator=gen, device=dev)
     w = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
     bm = torch.tensor(block_mask, dtype=torch.int32, device=dev)
-    out, ref = bpm_ops.block_pruned_matmul_op(x, w, bm), block_pruned_matmul_ref(x, w, bm)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    ok = bool(torch.allclose(out, ref, rtol=BPM_RTOL, atol=BPM_ATOL))
-    mask = expand_block_mask(bm, (K, N))
-    w_eff = w * mask
-    kernel_ms = time_ms(lambda: bpm_ops.block_pruned_matmul_op(x, w, bm), flush)
-    plain_ms = time_ms(lambda: block_pruned_matmul_ref(x, w, bm), flush)
-    library_ms = time_ms(lambda: torch.matmul(x, w_eff), flush)
-    # least work: the surviving weights once, the columns of x that meet a
-    # surviving tile once, the tile mask, the output once; 2 flops a
-    # surviving weight and row
-    surviving = int(mask.sum())
-    live_k = int((mask.sum(dim=1) > 0).sum())
-    nbytes = 4 * (M * live_k + surviving + bm.numel() + M * N)
     return {"shape": name, "M": M, "K": K, "N": N, "block_mask": block_mask,
-            "density": bpm_ops.density(bm), "ok": ok, "max_abs_err": err,
-            "rtol": BPM_RTOL, "atol": BPM_ATOL, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, **bound(nbytes, 2 * M * surviving)}
+            **bench_kernels.block_pruned_matmul_case(x, w, bm, flush=flush, alt_plans=alt_plans)}
 
 
 def _block_pruned_matmul_kernel(gen, flush) -> dict:
     tokens = 512 * 100  # a serve call of 512 requests: B·L rows through the encoder
+    # the tower's 80 x 1 output takes the rows path (N < 8); the small
+    # tensor-core tile is timed beside it
+    small = bpm_kernel.Plan(3, 16, 16)
     cases = [
         _bpm_case("enc_proj_64x64", tokens, 64, 64, [[1]], gen, flush),
         _bpm_case("enc_w1_64x256_d0.5", tokens, 64, 256, [[1, 0]], gen, flush),
         _bpm_case("enc_w2_256x64_d0.5", tokens, 256, 64, [[1], [0]], gen, flush),
         _bpm_case("tower_w0_208x200", 512, 208, 200, [[1, 1], [1, 0]], gen, flush),
         _bpm_case("tower_w1_200x80", 512, 200, 80, [[1], [0]], gen, flush),
-        _bpm_case("tower_wout_80x1", 512, 80, 1, [[1]], gen, flush),
+        _bpm_case("tower_wout_80x1", 512, 80, 1, [[1]], gen, flush,
+                  alt_plans={"small_32x32": small}),
         _bpm_case("dense_256_d0", 256, 256, 256, [[0, 0], [0, 0]], gen, flush),
         _bpm_case("dense_256_d1", 256, 256, 256, [[1, 1], [1, 1]], gen, flush),
     ]
@@ -380,7 +334,8 @@ def _block_pruned_matmul_kernel(gen, flush) -> dict:
         emit({"phase": "kernels", "kernel": "block_pruned_matmul", **c})
     bad = [c["shape"] for c in cases if not c["ok"]]
     if bad:
-        raise AssertionError(f"block_pruned_matmul disagrees with its plain version at {bad}")
+        raise AssertionError(f"block_pruned_matmul disagrees with its plain version or the f64 "
+                             f"product, or repeats in other bits, at {bad}")
     head = cases[1]  # the widest masked linear of the serve path: 51,200 x 64 x 256 at 0.5
     return {
         "name": "block_pruned_matmul", "route": "cuda",
@@ -388,9 +343,11 @@ def _block_pruned_matmul_kernel(gen, flush) -> dict:
         "replaces": "src/repro/kernels/block_pruned_matmul/block_pruned_matmul.py:45",
         "launches": None, "ok": True,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "max_f64_ratio": max(c["f64_ratio"] for c in cases),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "library_call": "torch.matmul(x, w * mask), TF32 off",
+        "bound_by": head["bound_by"], "bound_peak": head["bound_peak"],
+        "bound_ms_f32_cores": head["bound_ms_f32_cores"], "library_ms": head["library_ms"],
+        "library_call": "torch.matmul(x, w * mask), TF32 off", "vs_library": head["vs_library"],
         "at": head["shape"], "shapes": cases,
     }
 

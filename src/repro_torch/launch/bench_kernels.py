@@ -15,7 +15,7 @@ and its operations over the peak rate for their type. The rows:
 - `int8_matmul` 512³, through `quantized_linear` (activations and weights
   quantized per row, as `repro`'s benchmark does);
 - `block_pruned_matmul` 512 x 512 x 512 with a 4 x 4 tile mask, 40% of the
-  tiles pruned on average;
+  tiles pruned on average (also held against an f64 product);
 - `local_attention` BH 8, L 2048, dh 64, window 256, f32;
 - `embedding_bag` 4096 bags of 20 ids into a 1M x 32 table;
 - `fm_interaction` 65,536 examples of 39 fields x 10;
@@ -38,8 +38,10 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.kernels.augru import ops as augru_ops
 from repro_torch.kernels.augru.ref import augru_ref
+from repro_torch.kernels.block_pruned_matmul import block_pruned_matmul as bpm_kernel
 from repro_torch.kernels.block_pruned_matmul import ops as bpm_ops
 from repro_torch.kernels.block_pruned_matmul.ref import block_pruned_matmul_ref, expand_block_mask
+from repro_torch.kernels.embedding_bag import embedding_bag as eb_kernel
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.fm_interaction import ops as fm_ops
@@ -52,27 +54,35 @@ from repro_torch.kernels.local_attention.ref import attention_mask, local_attent
 from repro_torch.launch.serve import disable_tf32
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s; f32
-# FLOP/s outside the tensor cores; int8 tensor-core OP/s.
+# FLOP/s outside the tensor cores; int8 tensor-core OP/s; f32-accurate
+# products on the tensor cores as 3xTF32, a third of the 495 TFLOP/s of TF32.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 INT8_OPS = 1979e12
+F32_3XTF32_FLOPS = 495e12 / 3
 KERNEL_ITERS = 50
 SLEEP_CYCLES = 1_000_000  # ~0.5 ms at H100 clocks: longer than the host takes to enqueue a call
 L2_FLUSH_BYTES = 64 * 2**20  # > the H100's 50 MB L2
 LA_TOL, LA_BF16_TOL = 1e-5, 2e-2  # absolute; the JAX kernel test's for f32 and bf16
 INT8_RTOL, INT8_ATOL = 1e-6, 1e-4  # against the ref's association, as the JAX kernel test
+BPM_RTOL, BPM_ATOL = 1e-5, 1e-4  # the JAX kernel test's: f32 sums in another order
+BPM_F64_FACTOR = 2.0  # the kernel's error against an f64 product: at most 2x the f32 plain's
+EB_TOL_REL = 1e-5  # bags of more than one row, of the largest output: f32 sums in another order
 
 
-def time_ms(fn: Callable[[], object], flush: torch.Tensor, iters: int = KERNEL_ITERS) -> float:
+def time_ms(fn: Callable[[], object], flush: Optional[torch.Tensor],
+            iters: int = KERNEL_ITERS) -> float:
     """Median device time of one call. Before each: a write that evicts L2
-    (a serve call finds its inputs cold too), then a device-side sleep that
-    keeps the stream busy while the host enqueues the call, so the CUDA
-    events bracket device work and not the host's launch overhead."""
+    (a serve call finds its inputs cold too; `flush` None skips it, and the
+    inputs are then warm in L2), then a device-side sleep that keeps the
+    stream busy while the host enqueues the call, so the CUDA events bracket
+    device work and not the host's launch overhead."""
     fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(iters):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
         torch.cuda._sleep(SLEEP_CYCLES)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -205,6 +215,121 @@ def int8_case(x: torch.Tensor, w_rep: Dict[str, torch.Tensor], *,
     }
 
 
+def block_pruned_matmul_work(x: torch.Tensor, w: torch.Tensor, block_mask: torch.Tensor) -> Dict:
+    """The least work of x @ (w ⊙ expand(block_mask)): the surviving weights
+    once, the columns of x that meet a surviving tile once, the tile mask,
+    the output once; 2 operations a surviving weight and row, at the rate
+    of f32-accurate products on the tensor cores (3xTF32), with the time at
+    the CUDA cores' f32 rate beside it."""
+    (M, K), N = x.shape, w.shape[1]
+    mask = expand_block_mask(block_mask, (K, N))
+    surviving = int(mask.sum())
+    live_k = int((mask.sum(dim=1) > 0).sum())
+    nbytes = 4 * (M * live_k + surviving + block_mask.numel() + M * N)
+    flops = 2 * M * surviving
+    return {**bound(nbytes, flops, F32_3XTF32_FLOPS),
+            "bound_peak": "3xTF32 on the tensor cores, 495/3 TFLOP/s",
+            "bound_ms_f32_cores": bound(nbytes, flops)["bound_ms"]}
+
+
+def block_pruned_matmul_case(x: torch.Tensor, w: torch.Tensor, block_mask: torch.Tensor, *,
+                             flush: Optional[torch.Tensor] = None, iters: int = KERNEL_ITERS,
+                             alt_plans: Optional[Dict[str, "bpm_kernel.Plan"]] = None) -> Dict:
+    """`block_pruned_matmul_op` on x [M,K], w [K,N] and the int32 tile mask,
+    held against the plain version (within BPM_RTOL, BPM_ATOL) and against
+    an f64 product (its error at most BPM_F64_FACTOR times the f32 plain
+    version's), and launched twice for the same bits. With `flush` (on the
+    card), also times the kernel (L2 flushed, and with its inputs warm in
+    L2), the plain version, the library call `torch.matmul(x, w * mask)`
+    (TF32 off) and each of `alt_plans`, and counts the work."""
+    (M, K), N = x.shape, w.shape[1]
+    out = bpm_ops.block_pruned_matmul_op(x, w, block_mask)
+    again = bpm_ops.block_pruned_matmul_op(x, w, block_mask)
+    ref = block_pruned_matmul_ref(x, w, block_mask)
+    w_eff = w * expand_block_mask(block_mask, (K, N))
+    exact = x.double() @ w_eff.double()
+    err64 = float((out.double() - exact).abs().max())
+    plain_err64 = float((ref.double() - exact).abs().max())
+    bit_equal = bool(torch.equal(out, again))
+    close = bool(torch.allclose(out, ref, rtol=BPM_RTOL, atol=BPM_ATOL))
+    rec = {"ok": close and bit_equal and err64 <= BPM_F64_FACTOR * plain_err64,
+           "max_abs_err": float((out - ref).abs().max()), "rtol": BPM_RTOL, "atol": BPM_ATOL,
+           "err_f64": err64, "plain_err_f64": plain_err64,
+           "f64_ratio": err64 / plain_err64 if plain_err64 else 0.0, "bit_equal": bit_equal,
+           "density": bpm_ops.density(block_mask)}
+    if x.is_cuda:
+        rec["plan"] = bpm_kernel.launch_plan(M, K, N, bpm_kernel.sm_count(x.device))._asdict()
+    if flush is None:
+        return rec
+    ms = time_ms(lambda: bpm_ops.block_pruned_matmul_op(x, w, block_mask), flush, iters)
+    library_ms = time_ms(lambda: torch.matmul(x, w_eff), flush, iters)
+    return {
+        **rec, "ms": ms,
+        "ms_l2_warm": time_ms(lambda: bpm_ops.block_pruned_matmul_op(x, w, block_mask), None,
+                              iters),
+        "plain_ms": time_ms(lambda: block_pruned_matmul_ref(x, w, block_mask), flush, iters),
+        "library_ms": library_ms, "library": "torch.matmul(x, w * mask), TF32 off",
+        "vs_library": ms / library_ms,
+        "alt_plans_ms": {name: time_ms(lambda: bpm_kernel.block_pruned_matmul(x, w, block_mask,
+                                                                               plan), flush, iters)
+                         for name, plan in (alt_plans or {}).items()},
+        **block_pruned_matmul_work(x, w, block_mask),
+    }
+
+
+def embedding_bag_work(table: torch.Tensor, idx: torch.Tensor,
+                       weights: Optional[torch.Tensor]) -> Dict:
+    """Each distinct row read once, the ids and weights once, the output
+    written once; d multiply-adds an id."""
+    (B, nnz), d = idx.shape, table.shape[1]
+    uniq = int(torch.unique(idx).numel())
+    nbytes = uniq * d * 4 + idx.numel() * 4 + (weights.numel() * 4 if weights is not None else 0) \
+        + B * d * 4
+    return {**bound(nbytes, 2 * B * nnz * d), "distinct_rows": uniq}
+
+
+def embedding_bag_case(table: torch.Tensor, idx: torch.Tensor, weights: Optional[torch.Tensor],
+                       *, flush: Optional[torch.Tensor] = None,
+                       iters: int = KERNEL_ITERS) -> Dict:
+    """`embedding_bag_op` held against the plain version: a bag of one is
+    the gathered row to the bit (and the plain version's row, weighted),
+    larger bags within EB_TOL_REL of the largest output; launched twice for
+    the same bits. With `flush` (on the card), also times the kernel, the
+    plain version and the library call (`F.embedding` for unweighted bags
+    of one, else `F.embedding_bag(mode="sum")`), and counts the work."""
+    (B, nnz), d = idx.shape, table.shape[1]
+    out = eb_ops.embedding_bag_op(table, idx, weights)
+    again = eb_ops.embedding_bag_op(table, idx, weights)
+    ref = embedding_bag_ref(table, idx, weights)
+    err = float((out - ref).abs().max())
+    if nnz == 1:
+        tol = 0.0
+        ok = bool(torch.equal(out, ref)) and (
+            weights is not None or bool(torch.equal(out, table[idx[:, 0].long()])))
+    else:
+        tol = EB_TOL_REL * float(ref.abs().max())
+        ok = err <= tol
+    bit_equal = bool(torch.equal(out, again))
+    rec = {"ok": ok and bit_equal, "max_abs_err": err, "tol": tol, "bit_equal": bit_equal}
+    if table.is_cuda:
+        rec["plan"] = eb_kernel.launch_plan(B, nnz, d, eb_kernel.load_width(table))._asdict()
+    if flush is None:
+        return rec
+    idx64 = idx.long()
+    if nnz == 1 and weights is None:
+        library, library_name = (lambda: F.embedding(idx64[:, 0], table)), "F.embedding"
+    else:
+        library, library_name = (lambda: F.embedding_bag(idx64, table, mode="sum",
+                                                         per_sample_weights=weights),
+                                 "F.embedding_bag(mode='sum')")
+    ms = time_ms(lambda: eb_ops.embedding_bag_op(table, idx, weights), flush, iters)
+    library_ms = time_ms(library, flush, iters)
+    return {**rec, "ms": ms,
+            "plain_ms": time_ms(lambda: embedding_bag_ref(table, idx, weights), flush, iters),
+            "library_ms": library_ms, "library": library_name, "vs_library": ms / library_ms,
+            **embedding_bag_work(table, idx, weights)}
+
+
 def _check(out: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float) -> Dict:
     err = float((out.float() - ref.float()).abs().max())
     ok = bool(torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol))
@@ -236,18 +361,8 @@ def _block_pruned_row(gen, dev, flush, iters):
     x = torch.randn((M, K), generator=gen, device=dev)
     w = torch.randn((K, N), generator=gen, device=dev)
     bm = (torch.rand((4, 4), generator=gen, device=dev) > 0.4).to(torch.int32)
-    out = bpm_ops.block_pruned_matmul_op(x, w, bm)
-    check = _check(out, block_pruned_matmul_ref(x, w, bm), 1e-5, 1e-4)
-    mask = expand_block_mask(bm, (K, N))
-    w_eff = w * mask
-    surviving = int(mask.sum())
-    live_k = int((mask.sum(dim=1) > 0).sum())
-    work = bound(4 * (M * live_k + surviving + bm.numel() + M * N), 2 * M * surviving)
-    return _row("block_pruned_matmul", [M, K, N], {**check, "density": bpm_ops.density(bm)},
-                lambda: bpm_ops.block_pruned_matmul_op(x, w, bm),
-                lambda: block_pruned_matmul_ref(x, w, bm),
-                lambda: torch.matmul(x, w_eff), "torch.matmul(x, w * mask), TF32 off", work,
-                flush, iters)
+    return {"kernel": "block_pruned_matmul", "shape": [M, K, N],
+            **block_pruned_matmul_case(x, w, bm, flush=flush, iters=iters)}
 
 
 def _local_attention_row(gen, dev, flush, iters):
@@ -261,17 +376,8 @@ def _embedding_bag_row(gen, dev, flush, iters):
     V, d, B, nnz = 1_000_000, 32, 4096, 20
     table = torch.randn((V, d), generator=gen, device=dev)
     idx = torch.randint(0, V, (B, nnz), generator=gen, device=dev, dtype=torch.int32)
-    out = eb_ops.embedding_bag_op(table, idx)
-    ref = embedding_bag_ref(table, idx)
-    check = _check(out, ref, 0.0, 1e-5 * float(ref.abs().max()))
-    idx64 = idx.long()
-    uniq = int(torch.unique(idx).numel())
-    work = bound(uniq * d * 4 + idx.numel() * 4 + B * d * 4, 2 * B * nnz * d)
-    return _row("embedding_bag", [V, d, B, nnz], {**check, "distinct_rows": uniq},
-                lambda: eb_ops.embedding_bag_op(table, idx),
-                lambda: embedding_bag_ref(table, idx),
-                lambda: F.embedding_bag(idx64, table, mode="sum"), "F.embedding_bag(mode='sum')",
-                work, flush, iters)
+    return {"kernel": "embedding_bag", "shape": [V, d, B, nnz],
+            **embedding_bag_case(table, idx, None, flush=flush, iters=iters)}
 
 
 def _fm_row(gen, dev, flush, iters):

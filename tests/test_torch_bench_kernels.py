@@ -135,3 +135,69 @@ def test_kernel_cases_hold_the_wrapper_against_its_plain_version(monkeypatch):
     assert not bk.local_attention_case(q, k, v, window=8, kv_len=kv_len)["ok"]
     monkeypatch.setattr(bk.int8_ops, "quantized_linear", lambda x, rep: kernel_order(x, rep) + 1)
     assert not bk.int8_case(x, rep)["ok"]
+
+
+def test_block_pruned_matmul_case_holds_the_plain_version_an_f64_product_and_repeats(monkeypatch):
+    """The check half of the case chip_smoke.py and the benchmark share, on
+    CPU tensors: it passes; an output within the plain version's rtol/atol
+    but several times its f64 error fails it, as does one that changes
+    between two launches."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((40, 200), generator=gen)
+    w = torch.randn((200, 80), generator=gen) / 200 ** 0.5
+    bm = torch.tensor([[1], [0]], dtype=torch.int32)
+    rec = bk.block_pruned_matmul_case(x, w, bm)
+    assert rec["ok"] and rec["bit_equal"] and rec["f64_ratio"] == 1.0
+    assert rec["density"] == 0.5 and "plan" not in rec  # a plan is the card's
+    op = bk.bpm_ops.block_pruned_matmul_op
+    off = 10 * rec["plain_err_f64"]
+    monkeypatch.setattr(bk.bpm_ops, "block_pruned_matmul_op", lambda *a: op(*a) + off)
+    rec = bk.block_pruned_matmul_case(x, w, bm)
+    assert rec["max_abs_err"] <= bk.BPM_ATOL and rec["f64_ratio"] > bk.BPM_F64_FACTOR
+    assert not rec["ok"]
+    calls = iter(range(10))
+    monkeypatch.setattr(bk.bpm_ops, "block_pruned_matmul_op",
+                        lambda *a: op(*a) + 1e-7 * next(calls))
+    assert not bk.block_pruned_matmul_case(x, w, bm)["bit_equal"]
+
+
+def test_block_pruned_matmul_bound_counts_3xtf32_and_keeps_the_f32_cores_beside_it():
+    """The benchmark's 512^3 at 9 of 16 tiles: 2 operations a surviving
+    weight and row at 165 TFLOP/s; bytes bound it either way."""
+    x, w = torch.empty(512, 512), torch.empty(512, 512)
+    bm = torch.zeros(4, 4, dtype=torch.int32)
+    bm[:3, :3] = 1
+    b = bk.block_pruned_matmul_work(x, w, bm)
+    surviving = 9 * 128 * 128
+    assert b["flops"] == 2 * 512 * surviving
+    assert b["bytes"] == 4 * (512 * 384 + surviving + 16 + 512 * 512)
+    ops_ms = b["flops"] / (495e12 / 3) * 1e3
+    assert b["bound_ms"] == pytest.approx(max(ops_ms, b["bytes"] / 3.35e12 * 1e3))
+    assert b["bound_ms_f32_cores"] == pytest.approx(max(b["flops"] / 67e12, b["bytes"] / 3.35e12)
+                                                    * 1e3)
+    assert b["bound_ms_f32_cores"] >= b["bound_ms"] and "3xTF32" in b["bound_peak"]
+
+
+@pytest.mark.parametrize("nnz,weighted", [(1, False), (1, True), (7, True)])
+def test_embedding_bag_case_holds_the_plain_version_and_repeats(monkeypatch, nnz, weighted):
+    gen = torch.Generator().manual_seed(nnz)
+    table = torch.randn((50, 10), generator=gen)
+    idx = torch.randint(0, 50, (9, nnz), generator=gen, dtype=torch.int32)
+    w = torch.rand((9, nnz), generator=gen) if weighted else None
+    rec = bk.embedding_bag_case(table, idx, w)
+    assert rec["ok"] and rec["bit_equal"] and rec["tol"] == (0.0 if nnz == 1 else rec["tol"])
+    op = bk.eb_ops.embedding_bag_op
+    monkeypatch.setattr(bk.eb_ops, "embedding_bag_op",
+                        lambda *a: op(*a) + (1e-7 if nnz == 1 else 1e-3))
+    assert not bk.embedding_bag_case(table, idx, w)["ok"]
+    calls = iter(range(10))
+    monkeypatch.setattr(bk.eb_ops, "embedding_bag_op", lambda *a: op(*a) * (1 + next(calls)))
+    assert not bk.embedding_bag_case(table, idx, w)["bit_equal"]
+
+
+def test_embedding_bag_bound_reads_each_distinct_row_once():
+    table = torch.empty(100, 16)
+    idx = torch.tensor([[1, 1, 2], [2, 3, 1]], dtype=torch.int32)
+    b = bk.embedding_bag_work(table, idx, torch.empty(2, 3))
+    assert b["distinct_rows"] == 3
+    assert b["bytes"] == 3 * 16 * 4 + 6 * 4 + 6 * 4 + 2 * 16 * 4 and b["bound_by"] == "bytes"

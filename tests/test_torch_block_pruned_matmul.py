@@ -150,3 +150,144 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
         kw["mask"] = torch.ones(64, 31)
     with pytest.raises((ValueError, TypeError)):
         ops.block_pruned_matmul_op(x, w, bm, **kw)
+
+
+# ---------------------------------------------------------------- launch plan
+
+from repro_torch.kernels.block_pruned_matmul import block_pruned_matmul as bpm_kernel  # noqa: E402
+
+# (M, K, N): every masked linear of chip_smoke.py's kernels phase (a
+# structured taobao_ssa serve call of 512 requests, 256^3) and the kernel
+# benchmark's 512^3
+MAIN_SHAPES = [(51200, 64, 64), (51200, 64, 256), (51200, 256, 64), (512, 208, 200),
+               (512, 200, 80), (512, 80, 1), (256, 256, 256), (512, 512, 512)]
+
+
+@pytest.mark.parametrize("M,K,N", MAIN_SHAPES + [(37, 300, 129), (1, 1, 1), (2, 600, 300),
+                                                  (4096, 64, 64), (100, 7, 300), (3, 9, 7)])
+def test_launch_plan_takes_only_launches_the_c_entry_accepts(M, K, N):
+    plan = bpm_kernel.launch_plan(M, K, N)
+    assert plan.tile == bpm_kernel.ROWS or plan.tile in bpm_kernel.TILES
+    assert 1 <= plan.grid_m <= bpm_kernel.MAX_GRID_M
+    assert plan.splits in (1, 2, 4, 8) and (plan.splits == 1 or plan.tile not in (0, 1))
+    if N < 8 or K < bpm_kernel.MIN_K_TC:  # the rows path: f32 FMA, no tensor-core tile
+        assert plan.tile == bpm_kernel.ROWS
+        lanes = bpm_kernel.rows_lanes(K, N)
+        assert lanes in (1, 2, 4, 8, 16, 32)
+        assert plan.blocks * bpm_kernel.ROWS_WARPS * (32 // lanes) >= M
+    else:
+        bm, bn = bpm_kernel.TILES[plan.tile]
+        assert plan.blocks == plan.grid_m * -(-N // bn) * plan.splits
+        assert plan.grid_m <= -(-M // bm)  # no block along M without a tile (they walk the rest)
+
+
+@pytest.mark.parametrize("M,K,N", MAIN_SHAPES)
+def test_launch_plan_puts_work_on_every_sm_where_the_shape_allows(M, K, N):
+    """The encoder's 51,200-token calls take the tall tile, a grid of at
+    least 132 blocks; M <= 512 takes the small kernel, whose blocks times
+    warp groups over K cover the 132 SMs; N = 1 takes the rows path."""
+    plan = bpm_kernel.launch_plan(M, K, N)
+    if N < 8:
+        assert plan.tile == bpm_kernel.ROWS and plan.blocks == -(-M // bpm_kernel.ROWS_WARPS)
+    elif M >= 51200:
+        assert plan.tile == bpm_kernel.TALL and plan.blocks >= 132
+        assert -(-(-(-M // 64)) // plan.grid_m) in bpm_kernel.TALL_TILES_PER_BLOCK  # tiles a block
+    else:
+        assert plan.tile in (2, 3) and plan.blocks * bpm_kernel.K_GROUPS[plan.tile] >= 132
+
+
+def test_launch_plan_splits_k_over_a_cluster_only_for_few_tiles_and_long_k():
+    assert bpm_kernel.launch_plan(2, 600, 300).splits == 8      # one row of tiles, K 600
+    assert bpm_kernel.launch_plan(256, 256, 256).splits == 2
+    assert bpm_kernel.launch_plan(4096, 64, 64).splits == 1     # K 64: four steps of 16
+    assert bpm_kernel.launch_plan(51200, 256, 64).splits == 1   # the tall tile never splits
+    for M, K, N in MAIN_SHAPES:
+        plan = bpm_kernel.launch_plan(M, K, N)
+        assert plan.splits == 1 or -(-K // 16) >= 4 * plan.splits
+
+
+@pytest.mark.parametrize("plan", [bpm_kernel.Plan(9, 1, 1), bpm_kernel.Plan(1, 0, 1),
+                                  bpm_kernel.Plan(3, 1, 1, 3), bpm_kernel.Plan(1, 1, 1, 2),
+                                  bpm_kernel.Plan(0, 1, 1, 2), bpm_kernel.Plan(2, 70000, 1)])
+def test_the_binding_refuses_a_plan_the_c_entry_does_not_take(plan):
+    x, w, bm = torch.zeros(4, 16), torch.zeros(16, 8), torch.ones((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        bpm_kernel.block_pruned_matmul(x, w, bm, plan)
+
+
+def test_the_binding_refuses_a_tensor_core_tile_below_k_32():
+    x, w, bm = torch.zeros(4, 31), torch.zeros(31, 8), torch.ones((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="K >= 32"):
+        bpm_kernel.block_pruned_matmul(x, w, bm, bpm_kernel.Plan(3, 1, 1))
+
+
+# ------------------------------------------------------ 3xTF32, in plain torch
+
+def _rna_tf32(a: torch.Tensor) -> torch.Tensor:
+    """Round to nearest, ties away from zero, at TF32's 10-bit mantissa:
+    the kernel's two integer operations on the f32 bits."""
+    return ((a.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(a):
+    hi = _rna_tf32(a)
+    return hi, _rna_tf32(a - hi)
+
+
+def _emulate(x, w, terms=3):
+    """The kernel's arithmetic: per 16 columns of k, the products (exact in
+    f32: 11-bit times 11-bit significands) summed in f32, small terms first,
+    into a fresh chunk, then added to the f32 accumulator. terms=1 is a
+    single TF32 product."""
+    (xh, xl), (wh, wl) = _split(x), _split(w)
+    acc = torch.zeros(x.shape[0], w.shape[1])
+    for k0 in range(0, x.shape[1], 16):
+        s = slice(k0, k0 + 16)
+        chunk = xh[:, s] @ wh[s]
+        if terms == 3:
+            chunk = (xl[:, s] @ wh[s] + xh[:, s] @ wl[s]) + chunk
+        acc = acc + chunk
+    return acc
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 8, 16), (40, 64, 64), (33, 200, 80), (16, 256, 64),
+                                   (5, 300, 129)])
+def test_3xtf32_is_as_close_to_an_f64_product_as_f32_is(M, K, N):
+    """Against an f64 product, the emulated kernel's largest error is within
+    2x the f32 matmul's; a single TF32 product misses that by orders of
+    magnitude. This is the numerics the kernel promises."""
+    gen = torch.Generator().manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=gen)
+    w = torch.randn(K, N, generator=gen) / K ** 0.5
+    exact = x.double() @ w.double()
+    f32 = float((x @ w - exact).abs().max())
+    three = float((_emulate(x, w) - exact).abs().max())
+    one = float((_emulate(x, w, terms=1) - exact).abs().max())
+    assert three <= 2 * f32
+    assert one > 2 * f32
+
+
+def test_rna_tf32_rounds_half_away_from_zero_and_keeps_the_split_exact():
+    ulp = 2.0 ** -10  # TF32's step at 1.0
+    a = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 4, 3.0])
+    assert _rna_tf32(a).tolist() == [1 + ulp, -(1 + ulp), 1.0, 3.0]
+    x = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    hi, lo = _split(x)
+    assert torch.equal(_rna_tf32(hi), hi) and torch.equal(_rna_tf32(lo), lo)
+    # x - hi - lo is what the two TF32 parts leave out: below 2^-21 of |x|
+    left = (x.double() - hi.double() - lo.double()).abs() / x.double().abs()
+    assert float(left.max()) < 2 ** -21
+
+
+def test_few_terms_3xtf32_misses_f32_so_the_plan_takes_the_rows_path():
+    """With K = 1 the split's per-term error (about 2^-22 of each part) shows
+    against f32's single rounding; on the card it still shows at K = 8, 9
+    and 16 (2.06x, 2.05x, 2.37x the f32 matmul's error), so the plan sends
+    K < 32 to f32 FMA."""
+    gen = torch.Generator().manual_seed(7)
+    x, w = torch.randn(512, 1, generator=gen), torch.randn(1, 64, generator=gen)
+    exact = x.double() @ w.double()
+    assert float((_emulate(x, w) - exact).abs().max()) > 2 * float((x @ w - exact).abs().max())
+    for K in (1, 8, 16, 31):
+        assert bpm_kernel.launch_plan(512, K, 64).tile == bpm_kernel.ROWS
+    assert bpm_kernel.launch_plan(512, 32, 64).tile != bpm_kernel.ROWS

@@ -36,7 +36,9 @@ import numpy as np  # noqa: E402
 from repro_torch.kernels.augru import ops as augru_ops  # noqa: E402
 from repro_torch.kernels.augru.ref import augru_ref  # noqa: E402
 from repro_torch.kernels.block_pruned_matmul import ops as bpm_ops  # noqa: E402
-from repro_torch.kernels.block_pruned_matmul.ref import block_pruned_matmul_ref  # noqa: E402
+from repro_torch.kernels.block_pruned_matmul.ref import (  # noqa: E402
+    block_pruned_matmul_ref, expand_block_mask,
+)
 from repro_torch.kernels.embedding_bag import ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.fm_interaction import ops as fm_ops  # noqa: E402
@@ -186,8 +188,6 @@ def _close_to_cpu(card, host, name):
 
 @pytest.mark.cuda
 def test_block_pruned_matmul_gradients_on_card_match_the_cpu(cuda_device):
-    from repro_torch.kernels.block_pruned_matmul.ref import expand_block_mask
-
     x, w, bm = _bpm_inputs(25600, 200, 80, 0.5, "cpu")
     bm[0, 0] = 1
     mask = expand_block_mask(bm, w.shape)
@@ -489,3 +489,142 @@ def test_int8_matmul_has_no_backward_and_refuses_bad_inputs_on_card(cuda_device)
         int8_ops.int8_matmul_op(torch.ones(8, 16, dtype=torch.int8, device=cuda_device),
                                 rep["q"], torch.ones(8), rep["s"])
     assert int8_ops.launches == before
+
+
+# ---------------------------------- the redesigned kernels under every launch
+
+from repro_torch.kernels.block_pruned_matmul import block_pruned_matmul as bpm_kernel  # noqa: E402
+from repro_torch.kernels.embedding_bag import embedding_bag as eb_kernel  # noqa: E402
+
+# ragged M, K, N; masks whose every column keeps 32 or more rows of k (a
+# checkerboard of 128-row stripes: a column's first stripe is whole, or K
+# itself is short), where 3xTF32 promises f32's error
+BPM_PLAN_SHAPES = [(37, 300, 129), (300, 257, 100), (2, 600, 300), (64, 160, 130), (513, 200, 80),
+                   (5000, 36, 260), (1000, 8, 8), (3000, 130, 72), (7, 9, 3), (700, 16, 24),
+                   (700, 32, 24), (900, 40, 72)]
+
+
+def _checker_mask(K, N, density, device):
+    kb, nb = -(-K // 128), -(-N // 128)
+    if density == 0.5:
+        m = [[int((i + j) % 2 == 0) for j in range(nb)] for i in range(kb)]
+    else:
+        m = [[int(density)] * nb for _ in range(kb)]
+    return torch.tensor(m, dtype=torch.int32, device=device)
+
+
+def _plans(M, K, N):
+    plans = {"auto": None, "rows": bpm_kernel.Plan(0, 1, 1)}
+    if K >= bpm_kernel.MIN_K_TC:
+        for tile, (bm, bn) in bpm_kernel.TILES.items():
+            gm = -(-M // bm)
+            for splits in ((1,) if tile == bpm_kernel.TALL else (1, 2, 8)):
+                plans[f"tile{tile}x{splits}"] = bpm_kernel.Plan(tile, min(gm, 65535), 1, splits)
+    return plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", BPM_PLAN_SHAPES)
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+def test_block_pruned_matmul_under_every_launch_plan_on_card(cuda_device, M, K, N, density):
+    """Every tile the C entry takes (rows, tall, small with 1, 2 and 8 blocks
+    of a cluster over K): within rtol 1e-5, atol 1e-4 of the plain version,
+    within 2x the plain f32 version's error against an f64 product, and the
+    same bits from two launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=gen).to(cuda_device)
+    w = (torch.randn((K, N), generator=gen) / K ** 0.5).to(cuda_device)
+    bm = _checker_mask(K, N, density, cuda_device)
+    ref = block_pruned_matmul_ref(x, w, bm)
+    exact = x.double() @ (w * expand_block_mask(bm, (K, N))).double()
+    plain_err = float((ref.double() - exact).abs().max())
+    for name, plan in _plans(M, K, N).items():
+        out = bpm_kernel.block_pruned_matmul(x, w, bm, plan)
+        again = bpm_kernel.block_pruned_matmul(x, w, bm, plan)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4, msg=name)
+        assert float((out.double() - exact).abs().max()) <= 2 * plain_err, name
+        assert torch.equal(out, again), name
+        if density == 0.0:
+            assert not bool(out.any()), name
+
+
+@pytest.mark.cuda
+def test_block_pruned_matmul_where_a_column_keeps_fewer_than_32_rows_of_k(cuda_device):
+    """K = 129 with only the last stripe (one row) kept: each output is one
+    product, and on the tensor cores it carries 3xTF32's per-term error, not
+    f32's single rounding; it stays within 2^-20 of |x||w|, and the rows
+    path (f32 FMA) gives the plain version's bits."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((64, 129), generator=gen).to(cuda_device)
+    w = torch.randn((129, 40), generator=gen).to(cuda_device)
+    bm = torch.tensor([[0], [1]], dtype=torch.int32, device=cuda_device)
+    exact = x[:, 128:].double() @ w[128:].double()
+    for plan in (None, bpm_kernel.Plan(3, 2, 1)):
+        out = bpm_kernel.block_pruned_matmul(x, w, bm, plan)
+        assert bool(((out.double() - exact).abs() <= 2 ** -20 * exact.abs()).all())
+    rows = bpm_kernel.block_pruned_matmul(x, w, bm, bpm_kernel.Plan(0, 1, 1))
+    assert torch.equal(rows, block_pruned_matmul_ref(x, w, bm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 10, 18, 32, 64])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("nnz", [2, 39, 100])
+def test_embedding_bag_split_over_lanes_on_card(cuda_device, d, weighted, nnz):
+    """Every split a bag of nnz ids can take at width d (and the plan's):
+    within 1e-5 of the largest output of the plain version, the same bits
+    from two launches."""
+    table, idx, w = (torch.from_numpy(a).to(cuda_device) for a in _inputs(300, nnz, d, seed=d))
+    w = w if weighted else None
+    ref = embedding_bag_ref(table, idx, w)
+    tol = 1e-5 * float(ref.abs().max())
+    plan = eb_kernel.launch_plan(300, nnz, d, eb_kernel.load_width(table))
+    splits = [s for s in (1, 2, 4, 8, 16, 32) if plan.group * s <= 32 and s <= nnz]
+    assert plan.split in splits
+    for split in splits:
+        out = eb_kernel.embedding_bag(table, idx, w, split)
+        again = eb_kernel.embedding_bag(table, idx, w, split)
+        torch.cuda.synchronize()
+        assert float((out - ref).abs().max()) <= tol, split
+        assert torch.equal(out, again), split
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 10, 18, 64])
+def test_embedding_bag_of_one_is_the_gathered_row_on_card(cuda_device, d):
+    table, idx, w = (torch.from_numpy(a).to(cuda_device) for a in _inputs(5000, 1, d, seed=d))
+    assert eb_kernel.launch_plan(5000, 1, d, eb_kernel.load_width(table)).split == 1
+    assert torch.equal(ops.embedding_bag_op(table, idx), table[idx[:, 0].long()])
+    assert torch.equal(ops.embedding_bag_op(table, idx, w), embedding_bag_ref(table, idx, w))
+
+
+_OUT_OF_RANGE = """
+import sys, torch
+sys.path.insert(0, {src!r})
+from repro_torch.kernels.embedding_bag import ops
+table = torch.randn(100, {d}, device="cuda")
+idx = torch.randint(0, 100, (64, {nnz}), dtype=torch.int32, device="cuda")
+idx[5, {nnz} - 1] = {bad}
+out = ops.embedding_bag_op(table, idx)
+torch.cuda.synchronize()
+print("NO FAULT", float(out.sum()))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nnz,bad", [(1, 100), (39, 100), (39, -1)])
+def test_embedding_bag_out_of_range_id_faults_on_card(cuda_device, nnz, bad):
+    """An id outside [0, V) traps in the kernel before any read of the table
+    (a bag of one, and a bag split over lanes): the launch fails and the
+    process's next synchronise raises. In a subprocess, since the CUDA
+    context is lost."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    code = _OUT_OF_RANGE.format(src=src, d=16, nnz=nnz, bad=bad)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "NO FAULT" not in r.stdout, r.stdout + r.stderr

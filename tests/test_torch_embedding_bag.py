@@ -241,3 +241,84 @@ def test_table_gradient_sums_each_row_in_batch_order():
         want[v] = want[v] + rows[i]
     for _ in range(3):
         assert torch.equal(ops._table_grad(table, idx, rows), want)
+
+
+# ---------------------------------------------------------------- launch plan
+
+from repro_torch.kernels.embedding_bag import embedding_bag as eb_kernel  # noqa: E402
+
+# (B, nnz, d, vec): chip_smoke.py's lookups (taobao_ssa's history and user
+# ids, its weighted item bag, FM's first-order and unified lookups, DIEN's
+# history) and the kernel benchmark's 4096 bags of 20
+MAIN_BAGS = [(51200, 1, 64, 4), (512, 1, 16, 4), (512, 100, 64, 4), (512, 39, 1, 1),
+             (19968, 1, 10, 2), (51200, 1, 18, 2), (4096, 20, 32, 4)]
+
+
+@pytest.mark.parametrize("B,nnz,d,vec", MAIN_BAGS + [(37, 3, 300, 4), (5, 2, 1, 1), (1, 1, 1, 1)])
+def test_launch_plan_takes_only_splits_the_c_entry_accepts(B, nnz, d, vec):
+    plan = eb_kernel.launch_plan(B, nnz, d, vec)
+    chunks = d // vec
+    assert plan.group in (1, 2, 4, 8, 16, 32) and (plan.group >= chunks or plan.group == 32)
+    assert plan.group == 1 or plan.group // 2 < chunks  # the least power of two that covers d
+    assert plan.split in (1, 2, 4, 8, 16, 32) and plan.group * plan.split <= 32
+    assert plan.split <= nnz
+    if nnz == 1:
+        assert plan.split == 1  # a bag of one never splits: the gathered row, to the bit
+
+
+@pytest.mark.parametrize("B,nnz,d,vec", MAIN_BAGS)
+def test_launch_plan_fills_the_card_where_the_bags_allow(B, nnz, d, vec):
+    """The lanes of all bags reach 132 x 1,024 unless the bags run out of ids
+    to split or a bag's lanes fill a warp."""
+    plan = eb_kernel.launch_plan(B, nnz, d, vec)
+    threads = B * plan.group * plan.split
+    assert threads >= eb_kernel.TARGET_THREADS or plan.group * plan.split * 2 > 32 \
+        or plan.split * 2 > nnz
+
+
+def test_fm_first_order_bags_spread_over_a_warp():
+    """FM's d = 1 bags of 39: 32 lanes a bag, runs of 2 ids, where the old
+    kernel walked all 39 with one lane."""
+    assert eb_kernel.launch_plan(512, 39, 1, 1) == eb_kernel.Plan(group=1, split=32)
+    assert eb_kernel.launch_plan(512, 100, 64, 4) == eb_kernel.Plan(group=16, split=2)
+
+
+def _kernel_order(table, idx, w, split):
+    """The kernel's order of the sum, in plain torch: each of `split` runs of
+    ceil(nnz / split) contiguous ids from its first term (w·row, not
+    0 + w·row), then the runs in a fixed tree (run s += run s + split/2,
+    then /4, ...)."""
+    B, nnz = idx.shape
+    rows = table[idx.long()]
+    if w is not None:
+        rows = rows * w[..., None]
+    run = -(-nnz // split)
+    parts = []
+    for s in range(split):
+        part = torch.zeros(B, table.shape[1])
+        for j in range(s * run, min(nnz, s * run + run)):
+            part = rows[:, j] if j == s * run else part + rows[:, j]
+        parts.append(part)
+    off = split // 2
+    while off >= 1:
+        parts = [parts[s] + parts[s + off] for s in range(off)]
+        off //= 2
+    return parts[0]
+
+
+@pytest.mark.parametrize("split,nnz", [(1, 1), (1, 2), (2, 2), (1, 39), (4, 39), (32, 39),
+                                       (1, 100), (2, 100), (8, 100), (32, 100)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_the_split_order_is_within_the_tolerance_and_exact_for_bags_of_one(split, nnz, weighted):
+    """Only the order of the sum changes with `split`: within 1e-5 of the
+    largest output of the plain version (the tolerance the card holds the
+    kernel to), and the bits of the plain version for bags of one."""
+    table, idx, w = _inputs(24, nnz, 10, seed=nnz + split)
+    t, i = torch.from_numpy(table), torch.from_numpy(idx)
+    tw = torch.from_numpy(w) if weighted else None
+    ref = embedding_bag_ref(t, i, tw)
+    got = _kernel_order(t, i, tw, split)
+    if nnz == 1:
+        assert torch.equal(got, ref)
+    else:
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
