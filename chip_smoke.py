@@ -16,13 +16,16 @@ Phases, one JSON line each:
    shapes, held against its plain PyTorch version on the same inputs, and
    timed beside its bound, the plain version and, where one exists, one
    PyTorch library call: embedding_bag at taobao_ssa's, FM's and DIEN's
-   lookups, fm_interaction at FM's B=512, augru at DIEN's B=512 and at a
-   ragged B, block_pruned_matmul at every masked linear of a structured
+   lookups, fm_interaction at FM's B=512, augru at DIEN's B=512, a ragged
+   B, one row and the benchmark's 4096 (launched twice for the same bits),
+   block_pruned_matmul at every masked linear of a structured
    taobao_ssa serve call of 512 requests and at densities 0 and 1 (also
    against an f64 product, and launched twice for the same bits),
    local_attention at the C2 ranker's call of 512 requests (BH 2048,
-   L 100, dh 16, window 32, the history key mask) and at ragged, causal,
-   bf16, dh 32/64/128 and no-valid-key cases, int8_matmul at the ranker's
+   L 100, dh 16, window 32, the history key mask), on contiguous tensors
+   and on the encoder's views of [B, L, H, dh] projections, and at ragged,
+   causal, bf16, dh 32/64/128 and no-valid-key cases (each launched twice,
+   and on contiguous copies, for the same bits), int8_matmul at the ranker's
    FFN w1 (51,200 x 64 x 256), at 512³ and at ragged shapes (int32
    accumulators equal to the plain version's).
 4. ladder  — taobao_ssa at full width from seed 0: the launcher's
@@ -81,6 +84,7 @@ from repro_torch.core import pruning  # noqa: E402
 from repro_torch.core.compression_loop import run_ladder, serving_params, variant_stats  # noqa: E402
 from repro_torch.core.quantization import quantize_weight  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.augru import augru as augru_kernel  # noqa: E402
 from repro_torch.kernels.augru import ops as augru_ops  # noqa: E402
 from repro_torch.kernels.augru.ref import augru_ref  # noqa: E402
 from repro_torch.kernels.block_pruned_matmul import block_pruned_matmul as bpm_kernel  # noqa: E402
@@ -271,16 +275,21 @@ def _augru_inputs(B, T, g, gen):
 def _augru_kernel(gen, flush) -> dict:
     T, g = 100, 108
     checks = []
-    for B in (512, 37, 1):
+    for B in (512, 37, 1, 4096):  # DIEN's serve call, ragged, one row, the benchmark's
         args = _augru_inputs(B, T, g, gen)
-        out, ref = augru_ops.augru_op(*args), augru_ref(*args)
+        out, again, ref = augru_ops.augru_op(*args), augru_ops.augru_op(*args), augru_ref(*args)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
-        checks.append({"B": B, "ok": err <= AUGRU_TOL, "max_abs_err": err})
-        emit({"phase": "kernels", "kernel": "augru", "B": B, "T": T, "g": g,
-              "ok": err <= AUGRU_TOL, "max_abs_err": err, "tol": AUGRU_TOL})
+        bit_equal = bool(torch.equal(out, again))
+        ok = err <= AUGRU_TOL and bit_equal
+        plan = augru_kernel.launch_plan(B, g, bpm_kernel.sm_count(out.device))._asdict()
+        checks.append({"B": B, "ok": ok, "max_abs_err": err, "bit_equal": bit_equal})
+        emit({"phase": "kernels", "kernel": "augru", "B": B, "T": T, "g": g, "ok": ok,
+              "max_abs_err": err, "tol": AUGRU_TOL, "bit_equal": bit_equal, "plan": plan})
+        del args, out, again, ref
     if not all(c["ok"] for c in checks):
-        raise AssertionError(f"augru disagrees with its plain version: {checks}")
+        raise AssertionError(f"augru disagrees with its plain version or repeats in other "
+                             f"bits: {checks}")
     B = 512
     args = _augru_inputs(B, T, g, gen)
     ms = time_ms(lambda: augru_ops.augru_op(*args), flush)
@@ -353,15 +362,19 @@ def _block_pruned_matmul_kernel(gen, flush) -> dict:
 
 
 def _la_case(name, B, H, L, dh, window, gen, flush, *, causal=False, kv_len=None,
-             dtype=torch.float32, timed=False):
+             dtype=torch.float32, timed=False, views=False):
     """One shape of the windowed attention: q, k, v normal, `kv_len` [B] or
     None, through `bench_kernels.local_attention_case` (bf16 inputs against
-    the f32 plain version of the same rounded inputs)."""
-    q, k, v = (torch.randn((B, H, L, dh), generator=gen, device="cuda").to(dtype)
-               for _ in range(3))
+    the f32 plain version of the same rounded inputs). `views`: q, k and v
+    are `transpose(1, 2)` views of [B, L, H, dh] tensors, as the taobao_ssa
+    encoder hands them over."""
+    shape = (B, L, H, dh) if views else (B, H, L, dh)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    if views:
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     rec = bench_kernels.local_attention_case(q, k, v, window=window, causal=causal,
                                              kv_len=kv_len, flush=flush if timed else None)
-    return {"shape": name, "B": B, "H": H, "L": L, "dh": dh, **rec}
+    return {"shape": name, "B": B, "H": H, "L": L, "dh": dh, "views": views, **rec}
 
 
 def _local_attention_kernel(gen, flush) -> dict:
@@ -373,6 +386,11 @@ def _local_attention_kernel(gen, flush) -> dict:
     cases = [
         # the C2 ranker's call at 512 requests: every encoder block's attention
         _la_case("ranker_512", B, 4, 100, 16, C2_WINDOW, gen, flush, kv_len=hist, timed=True),
+        # the same call as the encoder makes it: views of [B, L, H, dh] projections
+        _la_case("ranker_512_views", B, 4, 100, 16, C2_WINDOW, gen, flush, kv_len=hist,
+                 timed=True, views=True),
+        _la_case("ranker_bf16_views", 37, 4, 100, 16, C2_WINDOW, gen, flush, kv_len=ragged,
+                 dtype=torch.bfloat16, views=True),
         _la_case("ranker_ragged_kv0", 37, 4, 100, 16, C2_WINDOW, gen, flush, kv_len=ragged),
         _la_case("ranker_window_1", 37, 4, 100, 16, 1, gen, flush, kv_len=ragged),
         _la_case("ranker_window_L", 37, 4, 100, 16, 100, gen, flush, kv_len=ragged),
@@ -398,10 +416,11 @@ def _local_attention_kernel(gen, flush) -> dict:
         "replaces": "src/repro/kernels/local_attention/local_attention.py:75",
         "launches": None, "ok": True,
         "max_abs_err": max(c["max_abs_err"] for c in cases if c["dtype"] == "float32"),
+        "max_f64_ratio": max(c["f64_ratio"] for c in cases if c["dtype"] == "float32"),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "library_call": "F.scaled_dot_product_attention with the boolean window and key mask",
-        "at": head["shape"], "shapes": cases,
+        "at": head["shape"], "ms_views": cases[1]["ms"], "shapes": cases,
     }
 
 

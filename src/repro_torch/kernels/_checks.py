@@ -9,15 +9,33 @@ from __future__ import annotations
 import torch
 
 
-def check_tensor(t: torch.Tensor, name: str, ndim: int, dtype: torch.dtype) -> None:
+def check_tensor(t: torch.Tensor, name: str, ndim: int, dtype: torch.dtype, *,
+                 contiguous: bool = True) -> None:
+    """Type, rank and dtype; with `contiguous` False, `check_rows` instead of
+    contiguity."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
     if t.ndim != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if not contiguous:
+        check_rows(t, name)
+
+
+def check_rows(t: torch.Tensor, name: str) -> None:
+    """A view whose kernel reads its last dimension as rows of 16-byte
+    vectors: that dimension contiguous, the base and every other stride
+    (of a dimension longer than 1) a multiple of 16 bytes."""
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        raise ValueError(f"{name} must have a contiguous last dimension, got strides {t.stride()}")
+    size = t.element_size()
+    if t.data_ptr() % 16 or any(s * size % 16 for s, n in zip(t.stride()[:-1], t.shape[:-1])
+                                if n > 1):
+        raise ValueError(f"{name} must start on 16 bytes and step by multiples of 16 bytes, "
+                         f"got strides {t.stride()} of {size}-byte elements")
 
 
 def dispatch_device(op: str, **tensors) -> torch.device:

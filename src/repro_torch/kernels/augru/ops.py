@@ -3,8 +3,9 @@
 A CPU tensor goes to the plain version (`ref.augru_ref`); a CUDA tensor
 goes to the Hopper kernel, or the call raises. Unlike `repro`'s wrapper,
 which falls back to the ref unless B divides by 128, the kernel takes any
-B. It refuses a `g` whose `wh` does not fit in a block's shared memory
-(g > 136), since the kernel keeps all of `wh` there.
+B. It refuses a `g` above 136: the kernel keeps `wh` in registers, each
+lane a quarter of a unit's three columns, and has template instances up
+to there.
 
 The kernel has no backward yet: on CUDA tensors of which one requires
 grad, with grad mode on, the wrapper raises rather than return an output
@@ -15,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._checks import check_no_grad, check_tensor, dispatch_device
-from repro_torch.kernels.augru.augru import MAX_SMEM_BYTES, augru, smem_bytes
+from repro_torch.kernels.augru.augru import MAX_G, augru
 from repro_torch.kernels.augru.ref import augru_ref
 
 # Kernel launches made through `augru_op`, in this process. Callers that
@@ -46,9 +47,9 @@ def augru_op(zx: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor, att: torch.Te
     if dev.type == "cpu":
         return augru_ref(zx, wh, h0, att, mask)
     check_no_grad("augru_op", zx=zx, wh=wh, h0=h0, att=att)
-    if smem_bytes(g) > MAX_SMEM_BYTES:
-        raise ValueError(f"g={g}: wh needs {smem_bytes(g)} bytes of shared memory, "
-                         f"a block has {MAX_SMEM_BYTES}")
+    if g > MAX_G:
+        raise ValueError(f"g={g} is wider than the kernel takes: g <= {MAX_G} (wh in "
+                         "registers, its rows of h and zx in shared memory)")
     out = augru(zx, wh, h0, att, mask)
     launches += 1
     return out

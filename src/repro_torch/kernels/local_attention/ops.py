@@ -1,7 +1,11 @@
 """Wrapper for the windowed-attention kernel: checks, dispatch, a launch
 count and a gradient (port of `repro.kernels.local_attention.ops`).
 
-`windowed_attention_op` keeps `repro`'s [B, H, L, dh] layout. A CPU tensor
+`windowed_attention_op` keeps `repro`'s [B, H, L, dh] signature, and takes
+q, k and v as views with any strides whose last dimension is contiguous
+(16-byte aligned): the model hands it `t.transpose(1, 2)` of its
+[B, L, H, dh] projections, and on the card gets back such a view of a
+[B, L, H, dh] output, so nothing is copied on either side. A CPU tensor
 goes to the plain version (`ref.local_attention_ref`); a CUDA tensor goes
 to the Hopper kernel, or the call raises. Unlike `repro`'s wrapper, which
 falls back to the ref unless L divides by 128, the kernel takes any L.
@@ -62,14 +66,15 @@ def windowed_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, 
                           causal: bool = False,
                           kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q, k, v: [B, H, L, dh] of one dtype, f32 or bf16, dh in (16, 32, 64,
-    128); kv_len int32 [B] or None (every key valid) -> [B, H, L, dh]:
+    128), views whose last dimension is contiguous (`check_rows`); kv_len
+    int32 [B] or None (every key valid) -> [B, H, L, dh]:
     softmax(q·kᵀ/√dh over the keys j with |i−j| < window, j < kv_len[b]
     and, if `causal`, j ≤ i)·v."""
-    check_tensor(q, "q", 4, q.dtype)
+    check_tensor(q, "q", 4, q.dtype, contiguous=False)
     if q.dtype not in DTYPES:
         raise TypeError(f"q must be one of {DTYPES}, got {q.dtype}")
-    check_tensor(k, "k", 4, q.dtype)
-    check_tensor(v, "v", 4, q.dtype)
+    check_tensor(k, "k", 4, q.dtype, contiguous=False)
+    check_tensor(v, "v", 4, q.dtype, contiguous=False)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v {tuple(v.shape)} "
                          "must have one shape")
@@ -83,7 +88,4 @@ def windowed_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, 
         if kv_len.shape != (B,):
             raise ValueError(f"kv_len {tuple(kv_len.shape)} must be ({B},)")
     dispatch_device("windowed_attention_op", q=q, k=k, v=v, kv_len=kv_len)
-    rows = None if kv_len is None else kv_len.repeat_interleave(H)  # one per row of B·H
-    out = _LocalAttention.apply(q.reshape(B * H, L, dh), k.reshape(B * H, L, dh),
-                                v.reshape(B * H, L, dh), rows, min(window, L), bool(causal))
-    return out.reshape(B, H, L, dh)
+    return _LocalAttention.apply(q, k, v, kv_len, min(window, L), bool(causal))

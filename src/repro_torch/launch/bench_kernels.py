@@ -64,6 +64,10 @@ KERNEL_ITERS = 50
 SLEEP_CYCLES = 1_000_000  # ~0.5 ms at H100 clocks: longer than the host takes to enqueue a call
 L2_FLUSH_BYTES = 64 * 2**20  # > the H100's 50 MB L2
 LA_TOL, LA_BF16_TOL = 1e-5, 2e-2  # absolute; the JAX kernel test's for f32 and bf16
+# f32 inputs: the kernel's error against the f64 function at most 2x the larger of
+# the f32 plain version's and four f32 ulps of the largest output (at a window of 1
+# the plain version returns v exactly, and the tensor core's f32 sums truncate)
+LA_F64_FACTOR, LA_F64_ULPS = 2.0, 2.0 ** -22
 INT8_RTOL, INT8_ATOL = 1e-6, 1e-4  # against the ref's association, as the JAX kernel test
 BPM_RTOL, BPM_ATOL = 1e-5, 1e-4  # the JAX kernel test's: f32 sums in another order
 BPM_F64_FACTOR = 2.0  # the kernel's error against an f64 product: at most 2x the f32 plain's
@@ -140,16 +144,39 @@ def local_attention_work(q: torch.Tensor, window: int, causal: bool = False,
     return {**bound(nbytes, flops), "pairs": pairs, "rows_without_keys": reps * H * dead_rows}
 
 
+def local_attention_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+                        causal: bool = False, kv_len: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """The windowed attention in float64 throughout: q, k, v [B, H, L, dh],
+    kv_len [B] or None; masked scores −1e30, as `repro`'s model."""
+    L, dh = q.shape[-2:]
+    mask = attention_mask(L, window, causal=causal, kv_len=kv_len, device=q.device)
+    if mask.ndim == 3:
+        mask = mask[:, None]
+    s = torch.einsum("bhld,bhmd->bhlm", q.double(), k.double()) / dh ** 0.5
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    return torch.einsum("bhlm,bhmd->bhld", p, v.double())
+
+
 def local_attention_case(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int,
                          causal: bool = False, kv_len: Optional[torch.Tensor] = None,
                          flush: Optional[torch.Tensor] = None, iters: int = KERNEL_ITERS) -> Dict:
     """`windowed_attention_op` on card tensors q, k, v [B, H, L, dh] (f32 or
-    bf16; `kv_len` [B] or None), held against the plain version on the
-    same inputs in f32: within LA_TOL, or LA_BF16_TOL for bf16 inputs. With
+    bf16, any views the op takes; `kv_len` [B] or None), held against the
+    plain version on the same inputs in f32: within LA_TOL, or LA_BF16_TOL
+    for bf16 inputs; a second launch, and a launch on contiguous copies of
+    q, k and v, must give the same bits; for f32 inputs, its error against
+    the function in f64 at most LA_F64_FACTOR times the larger of the plain
+    version's and LA_F64_ULPS of the largest output (the kernel's products
+    are 3xTF32 on the tensor cores). With
     `flush`, also times the kernel, the plain version and the library call
     (SDPA with the boolean mask), and counts the work."""
     B, H, L, dh = q.shape
     out = la_ops.windowed_attention_op(q, k, v, window=window, causal=causal, kv_len=kv_len)
+    again = la_ops.windowed_attention_op(q, k, v, window=window, causal=causal, kv_len=kv_len)
+    copies = la_ops.windowed_attention_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                                          window=window, causal=causal, kv_len=kv_len)
+    bit_equal = bool(torch.equal(out, again) and torch.equal(out, copies))
     rows = None if kv_len is None else kv_len.repeat_interleave(H)
     qf, kf, vf = (t.float().reshape(B * H, L, dh) for t in (q, k, v))
 
@@ -161,7 +188,16 @@ def local_attention_case(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, w
     tol = LA_TOL if q.dtype == torch.float32 else LA_BF16_TOL
     rec = {"window": window, "causal": causal, "dtype": str(q.dtype).split(".")[-1],
            "kv_len_min": None if kv_len is None else int(kv_len.min()),
-           "ok": bool(torch.isfinite(out).all()) and err <= tol, "max_abs_err": err, "tol": tol}
+           "ok": bool(torch.isfinite(out).all()) and err <= tol and bit_equal,
+           "max_abs_err": err, "tol": tol, "bit_equal": bit_equal}
+    if q.dtype == torch.float32:
+        exact = local_attention_f64(q, k, v, window, causal, kv_len)
+        err64 = float((out.double() - exact).abs().max())
+        plain_err64 = float((ref.double() - exact).abs().max())
+        rec.update(err_f64=err64, plain_err_f64=plain_err64,
+                   f64_ratio=err64 / plain_err64 if plain_err64 else 0.0)
+        floor = LA_F64_ULPS * float(exact.abs().max())
+        rec["ok"] = rec["ok"] and err64 <= LA_F64_FACTOR * max(plain_err64, floor)
     if flush is None:
         return rec
     mask = attention_mask(L, window, causal=causal, kv_len=kv_len, device=q.device)

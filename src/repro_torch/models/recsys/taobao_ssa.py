@@ -78,9 +78,9 @@ def _encoder_block(p, x: torch.Tensor, mask: torch.Tensor, n_heads: int, *, wind
     k = linear(p["wk"], h).reshape(B, L, n_heads, dh)
     v = linear(p["wv"], h).reshape(B, L, n_heads, dh)
     if window and not collect_attn:
-        heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]  # [B,H,L,dh]
+        heads = [t.transpose(1, 2) for t in (q, k, v)]  # [B,H,L,dh] views, not copies
         o = windowed_attention_op(*heads, window=window, kv_len=kv_len)
-        o = o.transpose(1, 2).reshape(B, L, d)
+        o = o.transpose(1, 2).reshape(B, L, d)  # on the card a view of [B,L,H,dh]: no copy
         probs = None
     else:
         s = torch.einsum("blhd,bmhd->bhlm", q, k) / math.sqrt(dh)

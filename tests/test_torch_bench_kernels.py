@@ -201,3 +201,39 @@ def test_embedding_bag_bound_reads_each_distinct_row_once():
     b = bk.embedding_bag_work(table, idx, torch.empty(2, 3))
     assert b["distinct_rows"] == 3
     assert b["bytes"] == 3 * 16 * 4 + 6 * 4 + 6 * 4 + 2 * 16 * 4 and b["bound_by"] == "bytes"
+
+
+def test_local_attention_case_takes_views_and_holds_two_launches_to_the_same_bits(monkeypatch):
+    """The case chip_smoke.py runs on the encoder's layout, on CPU tensors:
+    `transpose(1, 2)` views of [B, L, H, dh] pass; an op whose output moves
+    between launches by less than the tolerance fails on its bits."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn((3, 40, 2, 16), generator=gen).transpose(1, 2) for _ in range(3))
+    kv_len = torch.tensor([0, 5, 40], dtype=torch.int32)
+    rec = bk.local_attention_case(q, k, v, window=8, kv_len=kv_len)
+    assert rec["ok"] and rec["bit_equal"] and rec["max_abs_err"] == 0.0
+    assert rec["f64_ratio"] == 1.0 and 0 < rec["err_f64"] < 1e-6
+    wrapper = bk.la_ops.windowed_attention_op
+    calls = iter(range(10))
+    monkeypatch.setattr(bk.la_ops, "windowed_attention_op",
+                        lambda *a, **kw: wrapper(*a, **kw) + 1e-7 * next(calls))
+    rec = bk.local_attention_case(q, k, v, window=8, kv_len=kv_len)
+    assert rec["max_abs_err"] <= bk.LA_TOL and not rec["bit_equal"] and not rec["ok"]
+
+
+def test_local_attention_case_holds_f32_inputs_to_the_f64_function(monkeypatch):
+    """An output within LA_TOL of the plain version but several times its
+    error against the function in f64 (and several f32 ulps of the largest
+    output) fails the case; f64 agrees with the plain version where both
+    are exact (rows with no valid key: v's mean)."""
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn((2, 2, 30, 16), generator=gen) for _ in range(3))
+    kv_len = torch.tensor([0, 30], dtype=torch.int32)
+    exact = bk.local_attention_f64(q, k, v, 5, kv_len=kv_len)
+    torch.testing.assert_close(exact[0].float(), v[0].mean(dim=1, keepdim=True).expand(2, 30, 16))
+    off = bk.LA_TOL / 2
+    wrapper = bk.la_ops.windowed_attention_op
+    monkeypatch.setattr(bk.la_ops, "windowed_attention_op", lambda *a, **kw: wrapper(*a, **kw) + off)
+    rec = bk.local_attention_case(q, k, v, window=5, kv_len=kv_len)
+    assert rec["max_abs_err"] <= bk.LA_TOL and rec["f64_ratio"] > bk.LA_F64_FACTOR
+    assert not rec["ok"]

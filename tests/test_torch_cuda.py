@@ -14,7 +14,8 @@ Tolerances:
   order);
 - fm_interaction: rtol 1e-4, atol 1e-3, as the JAX kernel test, for the
   cancellation in (Σe)² − Σe²;
-- augru: 1e-5 absolute (h lies in (-1, 1); f32 throughout, TF32 off);
+- augru: 1e-5 absolute (h lies in (-1, 1); f32 throughout, TF32 off), and
+  two launches the same bits (every sum in a fixed order);
 - block_pruned_matmul: rtol 1e-5, atol 1e-4, as the JAX kernel test
   (f32 products of up to 300 terms in another order); its gradients and
   embedding_bag's table gradients against the CPU's within 1e-4 of their
@@ -22,7 +23,8 @@ Tolerances:
   lookup alone is the CPU's to the bit (each row summed in batch order);
 - local_attention: 1e-5 absolute in f32 (outputs are means of O(1)
   values; f32 softmax in another order), 2e-2 in bf16 against the f32
-  plain version of the same inputs, as the JAX kernel test;
+  plain version of the same inputs, as the JAX kernel test; on views the
+  same bits as on contiguous copies and as a second launch;
 - int8_matmul: the int32 accumulator equal to the plain version's (unit
   scales make it the output, exact in f32 below 2^24), the Pallas
   epilogue of it to the bit, `repro`'s ref within rtol 1e-6, atol 1e-4.
@@ -138,6 +140,44 @@ def test_augru_matches_plain_version_on_card(cuda_device, B, T, g):
     torch.cuda.synchronize()
     assert augru_ops.launches == before + 1 and out.shape == (B, g)
     assert float((out - augru_ref(*args)).abs().max()) <= 1e-5
+
+
+AUGRU_MODES = ["ragged", "mask_off", "mask_on", "att_0", "att_1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", AUGRU_MODES)
+@pytest.mark.parametrize("g", [1, 8, 18, 108, 136])
+@pytest.mark.parametrize("B", [1, 3, 4, 5, 37, 132, 133, 512, 4096])
+def test_augru_under_every_launch_plan_on_card(cuda_device, B, g, mode):
+    """Every rows-a-block the plan picks (4 up to 32 at B = 4096), every
+    template instance of g, masks all off (h stays h0 to the bit), all on
+    and ragged, attention 0 (the gate shut) and 1; two launches give the
+    same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T = 20
+    rng = np.random.default_rng(B * 7 + g)
+    zx = rng.normal(size=(B, T, 3 * g)).astype(np.float32)
+    wh = (rng.normal(size=(g, 3 * g)) / np.sqrt(g)).astype(np.float32)
+    h0 = (rng.normal(size=(B, g)) * 0.1).astype(np.float32)
+    att = rng.uniform(size=(B, T)).astype(np.float32)
+    mask = rng.uniform(size=(B, T)) > 0.2
+    if mode == "mask_off":
+        mask[:] = False
+    elif mode == "mask_on":
+        mask[:] = True
+    elif mode in ("att_0", "att_1"):
+        att[:] = float(mode[-1])
+    args = [torch.from_numpy(a).to(cuda_device) for a in (zx, wh, h0, att, mask)]
+    before = augru_ops.launches
+    out = augru_ops.augru_op(*args)
+    again = augru_ops.augru_op(*args)
+    torch.cuda.synchronize()
+    assert augru_ops.launches == before + 2 and out.shape == (B, g)
+    assert torch.equal(out, again)
+    assert float((out - augru_ref(*args)).abs().max()) <= 1e-5
+    if mode == "mask_off":
+        assert torch.equal(out, args[2])
 
 
 @pytest.mark.cuda
@@ -352,6 +392,39 @@ def test_local_attention_in_bf16_on_card(cuda_device, B, H, L, dh, window, causa
                                rtol=2e-2, atol=2e-2)
 
 
+def _la_views(B, H, L, dh, kv, device, dtype=torch.float32, seed=0):
+    """q, k, v as `transpose(1, 2)` views [B, H, L, dh] of [B, L, H, dh]
+    tensors, the layout the taobao_ssa encoder hands over."""
+    q, k, v, kv_len = _la_inputs(B, H, L, dh, kv, device, dtype, seed)
+    return (*(t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)), kv_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,L,dh,window,causal,kv", LA_SHAPES)
+def test_local_attention_on_views_matches_plain_version_on_card(cuda_device, B, H, L, dh, window,
+                                                                causal, kv, dtype):
+    """On [B, L, H, dh] memory through [B, H, L, dh] views: within the
+    tolerance of the plain version, the same bits as on contiguous copies
+    of the same values and as a second launch, and the output a view of
+    [B, L, H, dh] memory (the encoder reshapes it without a copy)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, kv_len = _la_views(B, H, L, dh, kv, cuda_device, dtype)
+    assert not q.is_contiguous() or H == 1 or L == 1
+    before = la_ops.launches
+    out = la_ops.windowed_attention_op(q, k, v, window=window, causal=causal, kv_len=kv_len)
+    again = la_ops.windowed_attention_op(q, k, v, window=window, causal=causal, kv_len=kv_len)
+    copies = la_ops.windowed_attention_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                                          window=window, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert la_ops.launches == before + 3 and out.shape == q.shape and out.dtype == dtype
+    assert torch.equal(out, again) and torch.equal(out, copies)
+    assert out.transpose(1, 2).is_contiguous()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), _la_plain(q, k, v, window, causal, kv_len),
+                               rtol=0 if dtype == torch.float32 else tol, atol=tol)
+
+
 @pytest.mark.cuda
 def test_local_attention_rows_without_a_key_are_the_mean_of_v_on_card(cuda_device):
     q, k, v, _ = _la_inputs(2, 4, 100, 16, None, cuda_device)
@@ -380,13 +453,16 @@ def test_local_attention_gradients_on_card_match_the_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["head_dim", "non_contiguous", "kv_len_on_cpu", "dtype"])
+@pytest.mark.parametrize("case", ["head_dim", "non_contiguous", "misaligned_base",
+                                  "kv_len_on_cpu", "dtype"])
 def test_local_attention_refuses_what_the_kernel_does_not_take_on_card(cuda_device, case):
     q, k, v, kv_len = _la_inputs(2, 2, 40, 16, "ragged", cuda_device)
     if case == "head_dim":
         q, k, v = (torch.randn(2, 2, 40, 24, device=cuda_device) for _ in range(3))
-    elif case == "non_contiguous":
-        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "non_contiguous":  # a strided last dimension (a transposed view is taken)
+        q = torch.randn(2, 2, 40, 32, device=cuda_device)[..., ::2]
+    elif case == "misaligned_base":
+        q = torch.randn(2 * 2 * 40 * 16 + 1, device=cuda_device)[1:].view(2, 2, 40, 16)
     elif case == "kv_len_on_cpu":
         kv_len = kv_len.cpu()
     elif case == "dtype":

@@ -18,10 +18,14 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels.local_attention.local_attention import local_attention as jax_kernel  # noqa: E402
+from repro.kernels.local_attention.ops import windowed_attention_op as jax_op  # noqa: E402
 from repro.kernels.local_attention.ref import local_attention_ref as jax_ref  # noqa: E402
 from repro.models.common import init_params as jax_init_params  # noqa: E402
 from repro.models.recsys import taobao_ssa as jax_ssa  # noqa: E402
 from repro_torch.kernels.local_attention import ops  # noqa: E402
+from repro_torch.kernels.local_attention.local_attention import (  # noqa: E402
+    HEAD_DIMS, MAX_WARPS, ROWS_A_WARP, SMEM_BYTES, block_span, key_bytes, launch_plan, row_strides,
+)
 from repro_torch.kernels.local_attention.ref import local_attention_ref  # noqa: E402
 from repro_torch.models.common import from_numpy_tree  # noqa: E402
 from repro_torch.models.recsys import taobao_ssa  # noqa: E402
@@ -157,7 +161,7 @@ def test_gradient_only_for_the_inputs_that_need_it():
 
 @pytest.mark.parametrize("case", ["dtype", "mixed_dtype", "shape", "head_dim", "window_0",
                                   "window_float", "kv_dtype", "kv_shape", "non_contiguous",
-                                  "ndim", "empty"])
+                                  "misaligned_base", "ndim", "empty"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     q, k, v = (torch.randn(2, 2, 8, 16) for _ in range(3))
     kw = {"window": 3}
@@ -177,11 +181,126 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
         kw["kv_len"] = torch.tensor([3, 4])
     elif case == "kv_shape":
         kw["kv_len"] = torch.tensor([3, 4, 5], dtype=torch.int32)
-    elif case == "non_contiguous":
-        q = torch.randn(2, 8, 2, 16).transpose(1, 2)
+    elif case == "non_contiguous":  # a strided last dimension (a transposed view is taken)
+        q = torch.randn(2, 2, 8, 32)[..., ::2]
+    elif case == "misaligned_base":
+        q = torch.randn(2 * 2 * 8 * 16 + 1)[1:].view(2, 2, 8, 16)
     elif case == "ndim":
         q, k, v = q[0], k[0], v[0]
     elif case == "empty":
         q, k, v = (torch.randn(2, 2, 0, 16) for _ in range(3))
     with pytest.raises((ValueError, TypeError)):
         ops.windowed_attention_op(q, k, v, **kw)
+
+
+def _views(B, L, H, dh, seed, bf16=False, grad=False):
+    """q, k, v as `transpose(1, 2)` views [B, H, L, dh] of [B, L, H, dh]
+    tensors (the taobao_ssa encoder's layout), their bases, and the same
+    values as numpy [B, H, L, dh] arrays; `bf16`: values rounded to bf16."""
+    rng = np.random.default_rng(seed)
+    bases = []
+    for _ in range(3):
+        t = torch.from_numpy(rng.normal(size=(B, L, H, dh)).astype(np.float32))
+        if bf16:
+            t = t.bfloat16().float()
+        bases.append(t.requires_grad_(grad))
+    views = [t.transpose(1, 2) for t in bases]
+    return views, bases, [np.ascontiguousarray(t.detach().numpy().transpose(0, 2, 1, 3))
+                          for t in bases]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kv", [False, True])
+def test_op_on_transposed_views_matches_repro(bf16, causal, kv):
+    """`windowed_attention_op` given `transpose(1, 2)` views of [B, L, H, dh]
+    tensors, as the encoder hands them over, against `repro`'s op on the
+    same values (its Pallas kernel in interpret mode at L = 128), or with a
+    key mask against the model's masked softmax: f32 within 1e-5, bf16
+    inputs cast to f32 likewise."""
+    B, L, H, dh, window = 2, 128, 4, 16, 9
+    views, _, arrs = _views(B, L, H, dh, seed=int(causal) + 2 * int(kv), bf16=bf16)
+    assert not views[0].is_contiguous()
+    kv_len = np.asarray([0, 70], np.int32) if kv else None
+    before = ops.launches
+    out = ops.windowed_attention_op(*views, window=window, causal=causal,
+                                    kv_len=None if kv_len is None else torch.from_numpy(kv_len))
+    assert ops.launches == before and out.shape == (B, H, L, dh)
+    jq, jk, jv = (jnp.asarray(a) for a in arrs)
+    if kv:
+        want = _jax_masked(jq, jk, jv, window, causal, jnp.asarray(kv_len))
+    else:
+        want = jax_op(jq, jk, jv, window=window, causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal,kv", [(False, True), (True, False)])
+def test_gradients_through_views_match_jax_grad(causal, kv):
+    """The gradient reaches the [B, L, H, dh] tensors behind the views and
+    equals `jax.grad` of the model's masked softmax."""
+    B, L, H, dh, window = 3, 20, 2, 16, 5
+    views, bases, arrs = _views(B, L, H, dh, seed=11, grad=True)
+    g = np.random.default_rng(12).normal(size=(B, H, L, dh)).astype(np.float32)
+    kv_len = np.asarray([0, 7, 20], np.int32) if kv else None
+
+    def f(q, k, v):
+        jk = None if kv_len is None else jnp.asarray(kv_len)
+        return jnp.sum(_jax_masked(q, k, v, window, causal, jk) * g)
+
+    ref = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in arrs))
+    out = ops.windowed_attention_op(*views, window=window, causal=causal,
+                                    kv_len=None if kv_len is None else torch.from_numpy(kv_len))
+    (out * torch.from_numpy(g)).sum().backward()
+    for name, base, want in zip("qkv", bases, ref):
+        np.testing.assert_allclose(base.grad.numpy().transpose(0, 2, 1, 3), np.asarray(want),
+                                   rtol=0, atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("BH,L,dh,window,causal,elem", [
+    (2048, 100, 16, 32, False, 4), (148, 100, 16, 32, False, 2), (8, 2048, 64, 256, False, 4),
+    (6, 200, 32, 64, True, 4), (4, 300, 128, 50, True, 2), (6, 1, 16, 4, False, 4),
+    (1, 65, 32, 64, True, 4), (6, 130, 64, 17, False, 4), (2, 300, 128, 50, False, 4),
+    (4096, 4096, 128, 4096, False, 4)])
+def test_launch_plan_covers_every_row_within_shared_memory(BH, L, dh, window, causal, elem):
+    """The pure launch plan: every query row in one block, 16 rows a warp,
+    enough threads for v's mean, the staged tiles within SMEM_BYTES (one
+    tile where a block's key span fits, else two buffers of a multiple of 8
+    keys), and at the C2 ranker's call four warps a block, two blocks a
+    (b, h), each with its whole key span in one tile."""
+    plan = launch_plan(BH, L, dh, window, causal, elem)
+    assert dh in HEAD_DIMS and plan.rows == plan.warps * ROWS_A_WARP
+    assert 1 <= plan.warps <= MAX_WARPS and 32 * plan.warps >= dh
+    assert plan.q_tiles * plan.rows >= L > (plan.q_tiles - 1) * plan.rows
+    row_bytes = key_bytes(dh, elem)
+    assert plan.smem == plan.buffers * plan.keys * row_bytes <= SMEM_BYTES
+    span = block_span(L, plan.rows, window, causal)
+    if span * row_bytes <= SMEM_BYTES:
+        assert (plan.keys, plan.buffers) == (span, 1)
+    else:
+        assert plan.buffers == 2 and plan.keys % 8 == 0 and 8 <= plan.keys < span
+    if (BH, L, dh, window) == (2048, 100, 16, 32):
+        assert (plan.warps, plan.rows, plan.keys, plan.q_tiles) == (4, 64, 100, 2)
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_staged_rows_put_a_fragments_loads_in_other_banks(dh, elem):
+    """A fragment of q·kᵀ reads rows (of q or k) g = 0..7 at dims 2t, 2t + 1
+    (t = 0..3) at once; one of p·v reads keys 2t, then 2t + 1, at dim g. Padded as the
+    kernel pads them, the lanes' 4-byte words fall in distinct banks (f32:
+    a half-warp's 8-byte loads, then each 4-byte load; bf16: two lanes may
+    share a word), and every row is a whole number of 16-byte copies."""
+    ks, vs = row_strides(dh, elem)
+    assert ks >= dh and vs >= dh and ks * elem % 16 == 0 and vs * elem % 16 == 0
+    assert key_bytes(dh, elem) == (ks + vs) * elem
+    if elem == 4:
+        for half in (range(0, 4), range(4, 8)):
+            words = [g * ks + 2 * t + i for g in half for t in range(4) for i in range(2)]
+            assert len({w % 32 for w in words}) == 32
+        for key in (0, 1):
+            assert len({((2 * t + key) * vs + g) % 32 for t in range(4) for g in range(8)}) == 32
+    else:
+        assert len({(g * ks + 2 * t) // 2 % 32 for g in range(8) for t in range(4)}) == 32
+        for key in (0, 1):
+            words = {((2 * t + key) * vs + g) // 2 for t in range(4) for g in range(8)}
+            assert len({w % 32 for w in words}) == len(words) == 16
