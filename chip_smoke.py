@@ -16,7 +16,10 @@ Phases, one JSON line each:
    shapes, held against its plain PyTorch version on the same inputs, and
    timed beside its bound, the plain version and, where one exists, one
    PyTorch library call: embedding_bag at taobao_ssa's, FM's and DIEN's
-   lookups, fm_interaction at FM's B=512, augru at DIEN's B=512, a ragged
+   lookups, fm_interaction at FM's B=512 and the benchmark's 65,536
+   (timed), ragged B, k of 1 to 33, e off a 16-byte boundary and examples
+   too wide for shared memory (each launched twice for the same bits),
+   augru at DIEN's B=512, a ragged
    B, one row and the benchmark's 4096 (launched twice for the same bits),
    block_pruned_matmul at every masked linear of a structured
    taobao_ssa serve call of 512 requests and at densities 0 and 1 (also
@@ -26,8 +29,11 @@ Phases, one JSON line each:
    and on the encoder's views of [B, L, H, dh] projections, and at ragged,
    causal, bf16, dh 32/64/128 and no-valid-key cases (each launched twice,
    and on contiguous copies, for the same bits), int8_matmul at the ranker's
-   FFN w1 (51,200 x 64 x 256), at 512³ and at ragged shapes (int32
-   accumulators equal to the plain version's).
+   FFN w1 (51,200 x 64 x 256), at 512³ and the tower's 512 x 208 x 200
+   (timed) and at ragged shapes (int32 accumulators equal to the plain
+   version's, two launches the same bits), each with its launch plan.
+   Beside every bound stands the launch floor, the time of a one-element
+   `fill_` under the same timing.
 4. ladder  — taobao_ssa at full width from seed 0: the launcher's
    pretraining (40 AdamW steps on batches of 256), then `run_ladder` with
    `LadderConfig(structured=True)` at the launcher's 10/10/15 steps; the
@@ -88,8 +94,6 @@ from repro_torch.kernels.augru import augru as augru_kernel  # noqa: E402
 from repro_torch.kernels.augru import ops as augru_ops  # noqa: E402
 from repro_torch.kernels.augru.ref import augru_ref  # noqa: E402
 from repro_torch.kernels.block_pruned_matmul import block_pruned_matmul as bpm_kernel  # noqa: E402
-from repro_torch.kernels.fm_interaction import ops as fm_ops  # noqa: E402
-from repro_torch.kernels.fm_interaction.ref import fm_interaction_ref  # noqa: E402
 from repro_torch.launch import bench_kernels, serve  # noqa: E402
 from repro_torch.launch.bench_kernels import bound, time_ms  # noqa: E402
 from repro_torch.launch.train import make_data  # noqa: E402
@@ -102,7 +106,6 @@ SIZES = (1, 8, 32, 128, 512)
 SERVE_REPS = 20
 PROFILE_CALLS = 10
 PROB_TOL = 1e-5  # card vs CPU, on probabilities
-FM_RTOL, FM_ATOL = 1e-4, 1e-3  # the JAX kernel test's: (Σe)² − Σe² cancels
 AUGRU_TOL = 1e-5  # absolute: h lies in (-1, 1)
 # train vs CPU, from parameters that the card's pretraining gives bit for
 # bit in every run (its table gradients sum in batch order). SGD at lr 1
@@ -225,38 +228,48 @@ def _embedding_bag_kernel(gen, flush) -> dict:
     }
 
 
+def _fm_case(name, B, F_, k, gen, flush, timed=False, offset=0):
+    """One shape through `bench_kernels.fm_interaction_case`; `offset`
+    floats into a larger allocation, so that e starts off a 16-byte
+    boundary (the kernel's unaligned head and ragged tail)."""
+    base = torch.randn((offset + B * F_ * k,), generator=gen, device="cuda")
+    e = base[offset:].view(B, F_, k)
+    return {"shape": name, "B": B, "F": F_, "k": k, "offset": offset,
+            **bench_kernels.fm_interaction_case(e, flush=flush if timed else None)}
+
+
 def _fm_interaction_kernel(gen, flush) -> dict:
-    dev = torch.device("cuda")
-    F_, k = 39, 10
-    checks = []
-    for B in (512, 37):
-        e = torch.randn((B, F_, k), generator=gen, device=dev)
-        out, ref = fm_ops.fm_interaction_op(e), fm_interaction_ref(e)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        ok = bool(torch.allclose(out, ref, rtol=FM_RTOL, atol=FM_ATOL))
-        checks.append({"B": B, "ok": ok, "max_abs_err": err})
-        emit({"phase": "kernels", "kernel": "fm_interaction", "B": B, "F": F_, "k": k, "ok": ok,
-              "max_abs_err": err, "rtol": FM_RTOL, "atol": FM_ATOL})
-    if not all(c["ok"] for c in checks):
-        raise AssertionError(f"fm_interaction disagrees with its plain version: {checks}")
-    B = 512
-    e = torch.randn((B, F_, k), generator=gen, device=dev)
-    ms = time_ms(lambda: fm_ops.fm_interaction_op(e), flush)
-    plain_ms = time_ms(lambda: fm_interaction_ref(e), flush)
-    # per value: s += v, q += v·v (3); per factor: S², −, Σ (3); per example: ½ (1)
-    work = bound(4 * B * F_ * k + 4 * B, B * (3 * F_ * k + 3 * k + 1))
-    rec = {"name": "fm_interaction", "route": "cuda",
-           "source": "src/repro_torch/csrc/fm_interaction.cu",
-           "replaces": "src/repro/kernels/fm_interaction/fm_interaction.py:25",
-           "launches": None, "ok": True, "max_abs_err": max(c["max_abs_err"] for c in checks),
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
-           "bound_by": work["bound_by"], "library_ms": None,
-           "library_none": "no single PyTorch call computes the FM sum-square interaction",
-           "at": f"B={B} F={F_} k={k}", "bytes": work["bytes"], "flops": work["flops"],
-           "checks": checks}
-    emit({"phase": "kernels", "kernel": "fm_interaction", **rec})
-    return rec
+    F_, k = 39, 10  # Criteo's FM
+    cases = [
+        _fm_case("fm_serve_512", 512, F_, k, gen, flush, timed=True),
+        _fm_case("bench_65536", 65_536, F_, k, gen, flush, timed=True),
+        _fm_case("ragged_511", 511, F_, k, gen, flush),
+        _fm_case("ragged_37", 37, F_, k, gen, flush),
+        _fm_case("one", 1, F_, k, gen, flush),
+        *(_fm_case(f"k{kk}_37", 37, F_, kk, gen, flush) for kk in (1, 3, 16, 33)),
+        _fm_case("offset_1_float", 37, F_, k, gen, flush, offset=1),
+        _fm_case("wide_40x2000", 3, 40, 2000, gen, flush),  # an example of 320 KB
+        _fm_case("wide_60000x1", 3, 60_000, 1, gen, flush),
+    ]
+    torch.cuda.empty_cache()
+    for c in cases:
+        emit({"phase": "kernels", "kernel": "fm_interaction", **c})
+    bad = [c["shape"] for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"fm_interaction disagrees with its plain version or repeats in "
+                             f"other bits at {bad}")
+    head, big = cases[0], cases[1]  # FM's serve call; the kernel benchmark's batch
+    return {"name": "fm_interaction", "route": "cuda",
+            "source": "src/repro_torch/csrc/fm_interaction.cu",
+            "replaces": "src/repro/kernels/fm_interaction/fm_interaction.py:25",
+            "launches": None, "ok": True, "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "library_none": "no single PyTorch call computes the FM sum-square interaction",
+            "at": head["shape"], "plan": head["plan"],
+            "at_65536": {key: big[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "plan")},
+            "shapes": cases}
 
 
 def _augru_inputs(B, T, g, gen):
@@ -439,7 +452,7 @@ def _int8_matmul_kernel(gen, flush) -> dict:
         # requests; the model itself runs weight-only dequant, not W8A8
         _int8_case("ranker_w1_51200x64x256", 512 * 100, 64, 256, gen, flush, timed=True),
         _int8_case("bench_512", 512, 512, 512, gen, flush, timed=True),
-        _int8_case("tower_512x208x200", 512, 208, 200, gen, flush),
+        _int8_case("tower_512x208x200", 512, 208, 200, gen, flush, timed=True),
         _int8_case("ragged_513x300x129", 513, 300, 129, gen, flush),
         _int8_case("one", 1, 1, 1, gen, flush),
         _int8_case("k_1001", 37, 1001, 65, gen, flush),
@@ -457,9 +470,9 @@ def _int8_matmul_kernel(gen, flush) -> dict:
         "launches": None, "ok": True, "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "library_call": "torch._int_mm + the epilogue", "at": head["shape"],
-        "at_512": {k: cases[1][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                            "bound_by")},
+        "library_call": "torch._int_mm + the epilogue", "at": head["shape"], "plan": head["plan"],
+        **{f"at_{c['shape']}": {k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                   "bound_by", "plan")} for c in cases[1:3]},
         "shapes": cases,
     }
 
@@ -467,6 +480,9 @@ def _int8_matmul_kernel(gen, flush) -> dict:
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     flush = bench_kernels.l2_flush_buffer("cuda")
+    floor = bench_kernels.launch_floor_ms("cuda", flush)
+    emit({"phase": "kernels", "launch_floor_ms": floor,
+          "what": "time_ms of a one-element fill_, L2 flushed: no launch takes less"})
     kernels = {
         "embedding_bag": _embedding_bag_kernel(gen, flush),
         "fm_interaction": _fm_interaction_kernel(gen, flush),
@@ -475,6 +491,8 @@ def phase_kernels() -> dict:
         "local_attention": _local_attention_kernel(gen, flush),
         "int8_matmul": _int8_matmul_kernel(gen, flush),
     }
+    for rec in kernels.values():
+        rec["launch_floor_ms"] = floor
     del flush
     torch.cuda.empty_cache()
     return kernels

@@ -21,6 +21,9 @@ and its operations over the peak rate for their type. The rows:
 - `fm_interaction` 65,536 examples of 39 fields x 10;
 - `augru` B 4096, T 100, g 108.
 
+Every row also carries `launch_floor_ms`, the time of a one-element
+`fill_` under the same timing: no launch takes less.
+
 Prints one JSON line a row, then the device. It needs an NVIDIA card and
 raises without one: a time is a device time, never the CPU's.
 """
@@ -44,8 +47,10 @@ from repro_torch.kernels.block_pruned_matmul.ref import block_pruned_matmul_ref,
 from repro_torch.kernels.embedding_bag import embedding_bag as eb_kernel
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.fm_interaction import fm_interaction as fm_kernel
 from repro_torch.kernels.fm_interaction import ops as fm_ops
 from repro_torch.kernels.fm_interaction.ref import fm_interaction_ref
+from repro_torch.kernels.int8_matmul import int8_matmul as int8_kernel
 from repro_torch.kernels.int8_matmul import ops as int8_ops
 from repro_torch.kernels.int8_matmul.ref import (
     int8_matmul_ref, int32_product, pallas_epilogue, quantize_activations)
@@ -69,6 +74,7 @@ LA_TOL, LA_BF16_TOL = 1e-5, 2e-2  # absolute; the JAX kernel test's for f32 and 
 # the plain version returns v exactly, and the tensor core's f32 sums truncate)
 LA_F64_FACTOR, LA_F64_ULPS = 2.0, 2.0 ** -22
 INT8_RTOL, INT8_ATOL = 1e-6, 1e-4  # against the ref's association, as the JAX kernel test
+FM_RTOL, FM_ATOL = 1e-4, 1e-3  # the JAX kernel test's: (Σe)² − Σe² cancels
 BPM_RTOL, BPM_ATOL = 1e-5, 1e-4  # the JAX kernel test's: f32 sums in another order
 BPM_F64_FACTOR = 2.0  # the kernel's error against an f64 product: at most 2x the f32 plain's
 EB_TOL_REL = 1e-5  # bags of more than one row, of the largest output: f32 sums in another order
@@ -108,6 +114,49 @@ def bound(nbytes: float, flops: float, peak: float = F32_FLOPS) -> Dict:
 def l2_flush_buffer(device) -> torch.Tensor:
     """The buffer `time_ms` writes before each call to evict L2."""
     return torch.empty(L2_FLUSH_BYTES // 4, device=device)
+
+
+def launch_floor_ms(device, flush: Optional[torch.Tensor], iters: int = KERNEL_ITERS) -> float:
+    """`time_ms` of a one-element `fill_` on the card: the least time any
+    launch takes under this timing, a yardstick beside the bounds (nothing
+    on a path calls it)."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"the launch floor is a device time on a CUDA card, not {device}")
+    one = torch.zeros(1, device=device)
+    return time_ms(lambda: one.fill_(1.0), flush, iters)
+
+
+def fm_interaction_work(B: int, F: int, k: int) -> Dict:
+    """e read once and the output written once; per value s += v and
+    q += v·v (3), per factor S², − and Σ (3), per example ½ (1)."""
+    return bound(4 * B * F * k + 4 * B, B * (3 * F * k + 3 * k + 1))
+
+
+def fm_interaction_case(e: torch.Tensor, *, flush: Optional[torch.Tensor] = None,
+                        iters: int = KERNEL_ITERS) -> Dict:
+    """`fm_interaction_op` on e [B, F, k], held against the plain version
+    within FM_RTOL and FM_ATOL, the JAX kernel test's, and launched twice
+    for the same bits. With `flush` (on the card), also times the kernel
+    and the plain version and counts the work; no single PyTorch call
+    computes the function."""
+    B, F, k = e.shape
+    out = fm_ops.fm_interaction_op(e)
+    again = fm_ops.fm_interaction_op(e)
+    ref = fm_interaction_ref(e)
+    bit_equal = bool(torch.equal(out, again))
+    close = bool(torch.allclose(out, ref, rtol=FM_RTOL, atol=FM_ATOL))
+    rec = {"ok": close and bit_equal and bool(torch.isfinite(out).all()),
+           "max_abs_err": float((out - ref).abs().max()), "rtol": FM_RTOL, "atol": FM_ATOL,
+           "bit_equal": bit_equal}
+    if e.is_cuda:
+        rec["plan"] = fm_kernel.launch_plan(B, F, k, bpm_kernel.sm_count(e.device))._asdict()
+    if flush is None:
+        return rec
+    return {**rec, "ms": time_ms(lambda: fm_ops.fm_interaction_op(e), flush, iters),
+            "plain_ms": time_ms(lambda: fm_interaction_ref(e), flush, iters),
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the FM sum-square interaction",
+            **fm_interaction_work(B, F, k)}
 
 
 def int8_matmul_work(M: int, K: int, N: int) -> Dict:
@@ -223,8 +272,9 @@ def int8_case(x: torch.Tensor, w_rep: Dict[str, torch.Tensor], *,
     unit scales the kernel's output is the int32 accumulator, equal to the
     plain version's; with the scales, the Pallas epilogue of that
     accumulator bit for bit, and the ref's association within INT8_RTOL and
-    INT8_ATOL, the JAX kernel test's. With `flush`, also times the kernel,
-    the plain version and the library call, and counts the work."""
+    INT8_ATOL, the JAX kernel test's; a second launch gives the same bits.
+    With `flush`, also times the kernel, the plain version and the library
+    call, and counts the work."""
     (M, K), N = x.shape, w_rep["q"].shape[1]
     x_q, x_s = quantize_activations(x)
     w_q, w_s = w_rep["q"], w_rep["s"]
@@ -232,12 +282,16 @@ def int8_case(x: torch.Tensor, w_rep: Dict[str, torch.Tensor], *,
     ones_m, ones_n = torch.ones(M, device=x.device), torch.ones(N, device=x.device)
     acc_ok = bool(torch.equal(int8_ops.int8_matmul_op(x_q, w_q, ones_m, ones_n), acc.float()))
     out = int8_ops.quantized_linear(x, w_rep)
+    again = int8_ops.quantized_linear(x, w_rep)
     ref = int8_matmul_ref(x_q, w_q, x_s, w_s)
     epi_ok = bool(torch.equal(out, pallas_epilogue(acc, x_s, w_s)))
-    rec = {"ok": acc_ok and epi_ok and bool(torch.allclose(out, ref, rtol=INT8_RTOL,
-                                                             atol=INT8_ATOL)),
-           "accumulator_equal": acc_ok, "equals_pallas_epilogue": epi_ok,
+    bit_equal = bool(torch.equal(out, again))
+    rec = {"ok": acc_ok and epi_ok and bit_equal and bool(torch.allclose(
+               out, ref, rtol=INT8_RTOL, atol=INT8_ATOL)),
+           "accumulator_equal": acc_ok, "equals_pallas_epilogue": epi_ok, "bit_equal": bit_equal,
            "max_abs_err": float((out - ref).abs().max()), "rtol": INT8_RTOL, "atol": INT8_ATOL}
+    if x.is_cuda:
+        rec["plan"] = int8_kernel.launch_plan(M, K, N, bpm_kernel.sm_count(x.device))._asdict()
     if flush is None:
         return rec
     return {
@@ -419,13 +473,8 @@ def _embedding_bag_row(gen, dev, flush, iters):
 def _fm_row(gen, dev, flush, iters):
     B, F_, k = 65_536, 39, 10
     e = torch.randn((B, F_, k), generator=gen, device=dev)
-    check = _check(fm_ops.fm_interaction_op(e), fm_interaction_ref(e), 1e-4, 1e-3)
-    # per value: s += v, q += v·v (3); per factor: S², −, Σ (3); per example: ½ (1)
-    work = bound(4 * B * F_ * k + 4 * B, B * (3 * F_ * k + 3 * k + 1))
-    return _row("fm_interaction", [B, F_, k], check, lambda: fm_ops.fm_interaction_op(e),
-                lambda: fm_interaction_ref(e), None,
-                "none: no single PyTorch call computes the FM sum-square interaction", work,
-                flush, iters)
+    return {"kernel": "fm_interaction", "shape": [B, F_, k],
+            **fm_interaction_case(e, flush=flush, iters=iters)}
 
 
 def _augru_row(gen, dev, flush, iters):
@@ -457,10 +506,11 @@ def run(device="cuda", seed: int = 0, iters: int = KERNEL_ITERS) -> List[Dict]:
         raise ValueError(f"the kernel benchmark times CUDA kernels; got device {dev}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     flush = l2_flush_buffer(dev)
+    floor = launch_floor_ms(dev, flush, iters)
     rows = []
     with torch.no_grad():
         for row in ROWS:
-            rows.append(row(gen, dev, flush, iters))
+            rows.append({**row(gen, dev, flush, iters), "launch_floor_ms": floor})
             torch.cuda.empty_cache()
     return rows
 

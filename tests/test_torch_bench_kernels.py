@@ -237,3 +237,61 @@ def test_local_attention_case_holds_f32_inputs_to_the_f64_function(monkeypatch):
     rec = bk.local_attention_case(q, k, v, window=5, kv_len=kv_len)
     assert rec["max_abs_err"] <= bk.LA_TOL and rec["f64_ratio"] > bk.LA_F64_FACTOR
     assert not rec["ok"]
+
+
+@pytest.mark.parametrize("B,F,k", [(37, 39, 10), (1, 5, 3), (64, 2, 33)])
+def test_fm_interaction_case_holds_the_plain_version_and_repeats(monkeypatch, B, F, k):
+    """The check half of the case chip_smoke.py and the benchmark share, on
+    CPU tensors: it passes; an output off by more than FM_ATOL fails it,
+    as does one that changes between two launches."""
+    e = torch.randn((B, F, k), generator=torch.Generator().manual_seed(B))
+    rec = bk.fm_interaction_case(e)
+    assert rec["ok"] and rec["bit_equal"] and rec["max_abs_err"] == 0.0
+    assert (rec["rtol"], rec["atol"]) == (1e-4, 1e-3) and "plan" not in rec  # a plan is the card's
+    op = bk.fm_ops.fm_interaction_op
+    monkeypatch.setattr(bk.fm_ops, "fm_interaction_op", lambda e: op(e) + 2e-3 * (1 + e.abs().max()))
+    assert not bk.fm_interaction_case(e)["ok"]
+    calls = iter(range(10))
+    monkeypatch.setattr(bk.fm_ops, "fm_interaction_op", lambda e: op(e) + 1e-6 * next(calls))
+    rec = bk.fm_interaction_case(e)
+    assert not rec["bit_equal"] and not rec["ok"]
+
+
+def test_fm_interaction_bound_at_fm_serve_call_and_the_benchmark():
+    """e read once, the output written once: 800,768 bytes at B = 512
+    (0.24 us at 3.35 TB/s), 102 MB at 65,536 (0.0306 ms); 3 operations a
+    value, 3 a factor, 1 an example."""
+    small, big = bk.fm_interaction_work(512, 39, 10), bk.fm_interaction_work(65_536, 39, 10)
+    assert small["bytes"] == 4 * 512 * 390 + 4 * 512 and small["flops"] == 512 * (3 * 390 + 31)
+    assert small["bound_by"] == big["bound_by"] == "bytes"
+    assert small["bound_ms"] == pytest.approx(0.000239, rel=1e-3)
+    assert big["bound_ms"] == pytest.approx(0.03060, rel=1e-3)
+
+
+def test_int8_case_fails_an_output_that_changes_between_launches(monkeypatch):
+    """On CPU tensors, with a stand-in in the kernel's epilogue order: two
+    launches that differ in a bit fail the case."""
+    from repro_torch.core.quantization import quantize_weight
+    from repro_torch.kernels.int8_matmul.ref import (
+        int32_product, pallas_epilogue, quantize_activations)
+
+    calls = iter(range(10))
+
+    def kernel_order(x, rep):
+        x_q, x_s = quantize_activations(x)
+        out = pallas_epilogue(int32_product(x_q, rep["q"]), x_s, rep["s"])
+        return out if next(calls) == 0 else torch.nextafter(out, out + 1)
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((17, 40), generator=gen)
+    rep = quantize_weight(torch.randn((40, 12), generator=gen) / 40 ** 0.5)
+    monkeypatch.setattr(bk.int8_ops, "quantized_linear", kernel_order)
+    rec = bk.int8_case(x, rep)
+    assert rec["equals_pallas_epilogue"] and not rec["bit_equal"] and not rec["ok"]
+
+
+def test_launch_floor_is_a_device_time_only():
+    """The floor is a device time: on the CPU it raises, never falls back to
+    a host clock."""
+    with pytest.raises(ValueError, match="device time"):
+        bk.launch_floor_ms("cpu", None)

@@ -13,7 +13,8 @@ Tolerances:
   gathered row), 1e-5 of the largest output otherwise (f32 sums in another
   order);
 - fm_interaction: rtol 1e-4, atol 1e-3, as the JAX kernel test, for the
-  cancellation in (Σe)² − Σe²;
+  cancellation in (Σe)² − Σe²; two launches the same bits (every sum in
+  a fixed order), under every launch plan;
 - augru: 1e-5 absolute (h lies in (-1, 1); f32 throughout, TF32 off), and
   two launches the same bits (every sum in a fixed order);
 - block_pruned_matmul: rtol 1e-5, atol 1e-4, as the JAX kernel test
@@ -27,7 +28,8 @@ Tolerances:
   same bits as on contiguous copies and as a second launch;
 - int8_matmul: the int32 accumulator equal to the plain version's (unit
   scales make it the output, exact in f32 below 2^24), the Pallas
-  epilogue of it to the bit, `repro`'s ref within rtol 1e-6, atol 1e-4.
+  epilogue of it to the bit, `repro`'s ref within rtol 1e-6, atol 1e-4;
+  two launches the same bits, under every tile and grid.
 """
 import pytest
 
@@ -704,3 +706,150 @@ def test_embedding_bag_out_of_range_id_faults_on_card(cuda_device, nnz, bad):
     code = _OUT_OF_RANGE.format(src=src, d=16, nnz=nnz, bad=bad)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
     assert r.returncode != 0 and "NO FAULT" not in r.stdout, r.stdout + r.stderr
+
+
+# ------------------- fm_interaction and int8_matmul under their launch plans
+
+from repro_torch.kernels.fm_interaction import fm_interaction as fm_kernel  # noqa: E402
+from repro_torch.kernels.int8_matmul import int8_matmul as int8_kernel  # noqa: E402
+
+
+def _fm_e(B, F, k, device, offset=0, seed=0):
+    """e [B, F, k] normal, `offset` floats into its allocation (offset 1 puts
+    its base off a 16-byte boundary)."""
+    flat = np.random.default_rng(seed).normal(size=offset + B * F * k).astype(np.float32)
+    return torch.from_numpy(flat).to(device)[offset:].view(B, F, k)
+
+
+def _fm_holds(e, plan=None):
+    """Within rtol 1e-4, atol 1e-3 of the plain version, and the same bits
+    from a second launch."""
+    out = fm_kernel.fm_interaction(e, plan)
+    again = fm_kernel.fm_interaction(e, plan)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, fm_interaction_ref(e), rtol=1e-4, atol=1e-3,
+                               msg=lambda m: f"{plan}: {m}")
+    assert torch.equal(out, again), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 10, 16, 33])
+@pytest.mark.parametrize("B", [1, 37, 511, 512, 65536])
+def test_fm_interaction_at_every_batch_and_width_on_card(cuda_device, B, k):
+    e = _fm_e(B, 39, k, cuda_device, seed=B + k)
+    before = fm_ops.launches
+    out = fm_ops.fm_interaction_op(e)
+    assert fm_ops.launches == before + 1 and out.shape == (B,)
+    _fm_holds(e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,k", [(40, 2000), (60000, 1), (1, 60000), (3, 300)])
+def test_fm_interaction_of_examples_too_wide_for_shared_memory_on_card(cuda_device, F, k):
+    """F·k over the block's shared memory takes the wide kernel (an example
+    a block, e read directly), never the plain version; (3, 300) runs it
+    forced, at an example that would fit."""
+    e = _fm_e(3, F, k, cuda_device, seed=F)
+    plan = fm_kernel.launch_plan(3, F, k)
+    assert plan.wide == (F * k > 3 * 300)
+    _fm_holds(e)
+    _fm_holds(e, fm_kernel.wide_plan(3, F, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("B,F,k", [(37, 39, 10), (512, 39, 10), (5, 3, 33), (9, 1, 1),
+                                   (70, 7, 5)])
+def test_fm_interaction_under_every_launch_plan_on_card(cuda_device, B, F, k, offset):
+    """Chunks of 1, 2, 3, 4, 10 and B examples (where they fit in shared
+    memory) and the wide branch, on e whose base lies 0-3 floats past a
+    16-byte boundary (the chunk's 4-byte head and tail)."""
+    e = _fm_e(B, F, k, cuda_device, offset=offset, seed=B)
+    plans = [fm_kernel.chunk_plan(B, F, k, E) for E in (1, 2, 3, 4, 10, B)
+             if fm_kernel.fits(E, F, k)]  # B = 512: 800 KB
+    plans.append(fm_kernel.wide_plan(B, F, k))
+    for plan in plans:
+        _fm_holds(e, plan)
+
+
+def _int8_operands(M, K, N, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    a_q = torch.randint(-128, 128, (M, K), generator=gen, dtype=torch.int8).to(device)
+    b_q = torch.randint(-128, 128, (K, N), generator=gen, dtype=torch.int8).to(device)
+    a_s = (torch.rand(M, generator=gen) * 0.02).to(device)
+    b_s = (torch.rand(N, generator=gen) * 0.02).to(device)
+    return a_q, b_q, a_s, b_s
+
+
+def _int8_holds(a_q, b_q, a_s, b_s, plan=None):
+    """With unit scales the output is the exact int32 accumulator (|acc| <
+    2^24 here, so f32 holds it); with the scales, the Pallas epilogue of it
+    to the bit; a second launch gives the same bits."""
+    M, N = a_q.shape[0], b_q.shape[1]
+    acc = int32_product(a_q, b_q)
+    assert int(acc.abs().max()) < 2 ** 24
+    ones_m, ones_n = torch.ones(M, device=a_q.device), torch.ones(N, device=a_q.device)
+    unit = int8_kernel.int8_matmul(a_q, b_q, ones_m, ones_n, plan)
+    out = int8_kernel.int8_matmul(a_q, b_q, a_s, b_s, plan)
+    again = int8_kernel.int8_matmul(a_q, b_q, a_s, b_s, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(unit, acc.float()), plan
+    assert torch.equal(out, pallas_epilogue(acc, a_s, b_s)), plan
+    assert torch.equal(out, again), plan
+
+
+# ragged M, K and N on every side of the tiles and of the 64-byte K stages;
+# K of 1,001 and 2,048 run 16 and 32 stages through the ring
+INT8_PLAN_SHAPES = [(513, 300, 129), (37, 1001, 65), (1, 1, 1), (70, 2048, 40), (300, 64, 256),
+                    (65, 200, 7), (129, 17, 250), (1000, 64, 256), (64, 128, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", INT8_PLAN_SHAPES)
+def test_int8_matmul_under_every_tile_and_grid_on_card(cuda_device, M, K, N):
+    """Each tile, with a block a tile, one block walking every M tile, and 2
+    and 7 blocks along M walking theirs (the next tile's stages in flight
+    while one is stored)."""
+    ops_in = _int8_operands(M, K, N, cuda_device, seed=M + K + N)
+    _int8_holds(*ops_in)
+    for tile in int8_kernel.TILES:
+        tiles_m = int8_kernel.m_tiles(M, tile)
+        for grid_m in sorted({tiles_m, 1, min(2, tiles_m), min(7, tiles_m)}):
+            _int8_holds(*ops_in, int8_kernel.tile_plan(M, K, N, tile, grid_m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [0, 1])
+@pytest.mark.parametrize("a_val,b_val", [(127, 127), (-128, -128), (127, -128), (-128, 127)])
+def test_int8_matmul_accumulates_the_extremes_under_every_tile_on_card(cuda_device, tile, a_val,
+                                                                       b_val):
+    """All of a_q and b_q at the int8 extremes over K = 1,000 (|acc| up to
+    16,384,000, just under 2^24), every third row of b_q flipped."""
+    M, K, N = 70, 1000, 70
+    a = torch.full((M, K), a_val, dtype=torch.int8, device=cuda_device)
+    b = torch.full((K, N), b_val, dtype=torch.int8, device=cuda_device)
+    b[::3] = 127 if b_val == -128 else -128
+    ones = torch.ones(M, device=cuda_device)
+    _int8_holds(a, b, ones, ones, int8_kernel.tile_plan(M, K, N, tile))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_off,b_off", [(1, 0), (4, 0), (0, 1), (0, 8), (3, 12)])
+def test_int8_matmul_on_views_off_16_byte_boundaries_on_card(cuda_device, a_off, b_off):
+    """a_q and b_q views whose bases sit a_off and b_off bytes past 16: the
+    binding lowers the copy widths to what the bases allow."""
+    M, K, N = 96, 64, 48
+    a_full, b_full, a_s, b_s = _int8_operands(M + 1, K, N + 1, cuda_device)
+    a_q = a_full.flatten()[a_off:a_off + M * K].view(M, K)
+    b_q = b_full.flatten()[b_off:b_off + K * N].view(K, N)
+    assert (a_q.data_ptr() % 16 == 0) == (a_off % 16 == 0)
+    _int8_holds(a_q, b_q, a_s[:M], b_s[:N])
+
+
+@pytest.mark.cuda
+def test_int8_matmul_refuses_a_forced_plan_of_another_shape_on_card(cuda_device):
+    a_q, b_q, a_s, b_s = _int8_operands(64, 64, 64, cuda_device)
+    with pytest.raises(ValueError):
+        int8_kernel.int8_matmul(a_q, b_q, a_s, b_s, int8_kernel.launch_plan(640, 64, 64))
+    with pytest.raises(ValueError):
+        fm_kernel.fm_interaction(_fm_e(8, 39, 10, cuda_device), fm_kernel.chunk_plan(9, 39, 10, 4))
