@@ -57,15 +57,32 @@ trained variants; fm and dien: random weights from seed 0):
    (torch.profiler), every variant at 512 and baseline at 1; the idle
    share sets that busy time against the serve phase's unprofiled median,
    since the profiler slows the host.
-8. card vs CPU — the same parameters and one 512-request batch through
+8. calibrate — each variant's latency curve, `serve.latency_model` at
+   1/8/32/128/512 (a warm call and 20 timed ones a size, the card
+   synchronised after each call); launches counted from 0 and exact.
+9. card vs CPU — the same parameters and one 512-request batch through
    `serve` on the card and on the CPU's plain path, every variant.
+10. simulate — each curve behind the launcher's `ElasticEngine`
+   (`serve.run_engine`: two autoscaled replicas, p99 SLO 100 ms) for 60
+   simulated seconds under `SIM_PROFILES[arch]`: the curve, lat(1),
+   lat(512), `sustainable_rate` at the engine's 5 ms batching window, the
+   full-batch rate 2·64 / lat(64) (two replicas closing batches of the
+   engine's `max_batch`), and per profile p50, p99, throughput, rejected,
+   arrived, completed and in_queue; then each variant's p99 and rates
+   over baseline's (a record, not a check). It raises on a curve point not finite and > 0, a 512
+   point below the variant's device busy time a call at 512 (phase 7),
+   arrived ≠ completed + rejected + in_queue, or a `REPEAT_PROFILE` run
+   repeated in other numbers.
 Then two more paths, each with its launches counted from 0:
-9. serve_taobao_ssa_c2 — taobao_ssa under the paper's C2 window of 32
-   through `serve.run`: pretraining, the structured ladder, the five
-   variants at every size; launches per call and in all (training's and
-   serving's, worked out); then card vs CPU on baseline and quantized, a
-   window of L = 100 against full attention, a profile at 1 and 512.
-10. bench_kernels — `python -m repro_torch.launch.bench_kernels`'s six
+11. serve_taobao_ssa_c2 — taobao_ssa under the paper's C2 window of 32
+   through `serve.run(..., profile="spike")`: pretraining, the structured
+   ladder, the five variants at every size, each variant's curve and its
+   engine run; launches per call and in all (training's, serving's and
+   calibration's, worked out); then card vs CPU on baseline and
+   quantized, a window of L = 100 against full attention, a profile at 1
+   and 512, and the simulate phase on the launcher's curves (its spike
+   runs equal to `serve.run`'s own).
+12. bench_kernels — `python -m repro_torch.launch.bench_kernels`'s six
    rows, every kernel at `benchmarks/bench_kernels.py`'s shapes.
 
 Then the `{"kernels": [...]}` line, and last
@@ -89,6 +106,8 @@ from repro_torch.configs.base import PORTED, get_config, with_attn_window  # noq
 from repro_torch.core import pruning  # noqa: E402
 from repro_torch.core.compression_loop import run_ladder, serving_params, variant_stats  # noqa: E402
 from repro_torch.core.quantization import quantize_weight  # noqa: E402
+from repro_torch.core.serving.engine import EngineConfig  # noqa: E402
+from repro_torch.core.serving.replica import ReplicaSpec, sustainable_rate  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.augru import augru as augru_kernel  # noqa: E402
 from repro_torch.kernels.augru import ops as augru_ops  # noqa: E402
@@ -151,6 +170,12 @@ EXPECT_LAUNCHES = {
     ("dien", "baseline"): {**_NONE, "embedding_bag": 5, "augru": 1},
 }
 C2_WINDOW = 32  # the C2 path's window: a third of L = 100
+# traffic profiles each path's curves are served under (simulate phase),
+# and the one every variant runs twice, which must give the same numbers
+SIM_PROFILES = {"taobao_ssa": ("steady", "spike", "ramp"),
+                "taobao_ssa_c2": ("steady", "spike", "ramp"), "fm": ("spike",), "dien": ("spike",)}
+REPEAT_PROFILE = "spike"
+COUNTS = ("arrived", "completed", "in_queue")  # of an engine run, beside `serve.serving_record`
 KERNEL_SYMBOL = {"embedding_bag": "embedding_bag_kernel",
                  "fm_interaction": "fm_interaction_kernel", "augru": "augru_kernel",
                  "block_pruned_matmul": "block_pruned_matmul_",  # tall, small and rows
@@ -541,14 +566,16 @@ def _busy_ms(intervals) -> float:
     return total / 1e3
 
 
-def phase_profile(arch, variant, cfg, params, batches, serve_median_ms, sizes) -> None:
+def phase_profile(arch, variant, cfg, params, batches, serve_median_ms, sizes) -> dict:
     """Where a serve call's time goes: the device's busy time and each
     kernel's share of it (torch.profiler). The profiler slows the host
     several-fold, so the idle share is taken against `serve_median_ms`, the
-    unprofiled median of the serve phase at the same size."""
+    unprofiled median of the serve phase at the same size. Returns the busy
+    ms a call at each size (None where the profiler saw no device event)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    busy = {}
     for n in sizes:
         batch = batches[n]
         for _ in range(3):
@@ -565,7 +592,7 @@ def phase_profile(arch, variant, cfg, params, batches, serve_median_ms, sizes) -
         by_name = {}
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        busy_ms = _busy_ms(spans) / PROFILE_CALLS if spans else None
+        busy_ms = busy[n] = _busy_ms(spans) / PROFILE_CALLS if spans else None
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         emit({"phase": "profile", "arch": arch, "variant": variant, "size": n,
               "calls": PROFILE_CALLS, "profiled_wall_ms_per_call": profiled_wall_ms,
@@ -576,6 +603,90 @@ def phase_profile(arch, variant, cfg, params, batches, serve_median_ms, sizes) -
                   k: sum(v for name, v in by_name.items() if sym in name) / PROFILE_CALLS
                   for k, sym in KERNEL_SYMBOL.items()},
               "top_ms_per_call": [[k[:80], v / PROFILE_CALLS] for k, v in top]})
+    return busy
+
+
+def phase_calibrate(arch, cfg, params_by_variant, batches) -> tuple:
+    """Each variant's latency curve through `serve.latency_model`, as the
+    launcher makes it; the launches are counted from 0 and must equal the
+    calls' (a warm call and `SERVE_REPS` timed ones at each size). Returns
+    the curves and the launches."""
+    t0 = time.perf_counter()
+    serve.reset_launch_counts()
+    curves = {v: serve.latency_model(p, serve.variant_cfg(v, cfg), batches, SERVE_REPS)
+              for v, p in params_by_variant.items()}
+    launches = serve.launch_counts()
+    calls = (1 + SERVE_REPS) * len(batches)
+    expect = {k: calls * sum(EXPECT_LAUNCHES[(arch, v)][k] for v in params_by_variant)
+              for k in _NONE}
+    emit({"phase": "calibrate", "arch": arch, "reps": SERVE_REPS, "launches": launches,
+          "expected": expect, "seconds": time.perf_counter() - t0})
+    if launches != expect:
+        raise AssertionError(f"{arch} calibration launches {launches}, expected {expect}")
+    return curves, launches
+
+
+def _ratio(a, b):
+    """a / b, or None where either is not finite or b is 0 (an unbounded
+    `sustainable_rate`)."""
+    return a / b if np.isfinite(a) and np.isfinite(b) and b else None
+
+
+def phase_simulate(arch, curves, busy_512) -> dict:
+    """Serve each variant's curve through the launcher's engine
+    (`serve.run_engine`, 60 simulated seconds) under `SIM_PROFILES[arch]`,
+    check it, and record p99, the sustainable rate and the full-batch rate
+    (two replicas closing batches of the engine's `max_batch`) against
+    baseline's.
+    `busy_512`: {variant: device busy ms a call at 512} where a profile ran.
+    Returns {variant: {profile: the run's numbers}}."""
+    t0 = time.perf_counter()
+    engine = EngineConfig()
+    window, full = engine.max_wait_s, engine.max_batch
+    runs, rates, full_rates = {}, {}, {}
+    for v, lat in curves.items():
+        curve_ms = lat.times * 1e3
+        if not (np.isfinite(curve_ms).all() and (curve_ms > 0).all()):
+            raise AssertionError(f"{arch}/{v}: curve points {curve_ms.tolist()} ms")
+        if busy_512.get(v) is not None and lat(512) * 1e3 < busy_512[v]:
+            raise AssertionError(f"{arch}/{v}: curve at 512 {lat(512) * 1e3} ms, below the "
+                                 f"device's busy time a call, {busy_512[v]} ms")
+        spec = ReplicaSpec(v, lat, cold_start_s=5.0, warm_start_s=0.2)
+        rates[v] = sustainable_rate(spec, 2, window)
+        full_rates[v] = 2 * full / lat(full)
+        runs[v] = {}
+        for prof in SIM_PROFILES[arch]:
+            t1 = time.perf_counter()
+            res = serve.run_engine(v, lat, prof)
+            rec = {**serve.serving_record(res, lat), **{k: res[k] for k in COUNTS},
+                   "seconds": time.perf_counter() - t1}
+            if res["arrived"] != res["completed"] + res["rejected"] + res["in_queue"]:
+                raise AssertionError(f"{arch}/{v}/{prof}: arrived {res['arrived']} != completed "
+                                     f"{res['completed']} + rejected {res['rejected']} + in "
+                                     f"queue {res['in_queue']}")
+            if prof == REPEAT_PROFILE:
+                again = serve.run_engine(v, lat, prof)
+                again = {**serve.serving_record(again, lat), **{k: again[k] for k in COUNTS}}
+                first = {k: rec[k] for k in again}
+                if json.dumps(first, sort_keys=True) != json.dumps(again, sort_keys=True):
+                    raise AssertionError(f"{arch}/{v}/{prof}: two runs of one curve differ: "
+                                         f"{first} vs {again}")
+            runs[v][prof] = rec
+        emit({"phase": "simulate", "arch": arch, "variant": v,
+              "curve_ms": dict(zip(map(int, lat.sizes), curve_ms.tolist())),
+              "latency_1_ms": lat(1) * 1e3, "latency_512_ms": lat(512) * 1e3,
+              "device_busy_ms_512": busy_512.get(v), "sustainable_rate": rates[v],
+              "max_wait_s": window, "full_batch_rate": full_rates[v], "max_batch": full,
+              "profiles": runs[v]})
+    base = "baseline"
+    emit({"phase": "simulate_vs_baseline", "arch": arch,
+          "p99_ms": {v: {p: _ratio(r["p99_ms"], runs[base][p]["p99_ms"]) for p, r in by.items()}
+                     for v, by in runs.items()},
+          "sustainable_rate": {v: _ratio(rates[v], rates[base]) for v in rates},
+          "full_batch_rate": {v: _ratio(full_rates[v], full_rates[base]) for v in rates},
+          "paper_claim": "p99 under 0.3 of baseline's and rate over 2x: a record, not a check",
+          "seconds": time.perf_counter() - t0})
+    return runs
 
 
 def phase_card_vs_cpu(arch, cfg, params_by_variant, batch) -> None:
@@ -747,11 +858,11 @@ def phase_train_vs_cpu(params) -> None:
     torch.cuda.empty_cache()
 
 
-def drive_arch(arch: str, variants=None) -> dict:
-    """Serve, profile and card-vs-CPU for one arch at full width; returns
-    the kernel launches of its serve phase. `variants` are the trees to
-    serve (taobao_ssa: the ladder's); by default the arch's own from random
-    weights."""
+def drive_arch(arch: str, variants=None) -> tuple:
+    """Serve, profile, calibrate, card-vs-CPU and simulate for one arch at
+    full width; returns the kernel launches of its serve and its calibrate
+    phase. `variants` are the trees to serve (taobao_ssa: the ladder's); by
+    default the arch's own from random weights."""
     t0 = time.perf_counter()
     cfg = get_config(arch)
     dev = torch.device("cuda")
@@ -762,41 +873,50 @@ def drive_arch(arch: str, variants=None) -> dict:
     batches = serve.request_batches(cfg, SIZES, dev)
     setup_s = time.perf_counter() - t0
     launches, serve_median_ms = phase_serve(arch, cfg, variants, batches)
+    busy_512 = {}
     for v, vparams in variants.items():
         sizes = (1, max(SIZES)) if v == "baseline" and arch == "taobao_ssa" else (max(SIZES),)
-        phase_profile(arch, v, serve.variant_cfg(v, cfg), vparams, batches, serve_median_ms[v],
-                      sizes)
+        busy_512[v] = phase_profile(arch, v, serve.variant_cfg(v, cfg), vparams, batches,
+                                    serve_median_ms[v], sizes)[max(SIZES)]
+    curves, cal_launches = phase_calibrate(arch, cfg, variants, batches)
     phase_card_vs_cpu(arch, cfg, variants, batches[max(SIZES)])
+    phase_simulate(arch, curves, busy_512)
     emit({"phase": "arch_done", "arch": arch, "setup_seconds": setup_s,
           "seconds": time.perf_counter() - t0,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
     del variants, batches
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    return launches
+    return launches, cal_launches
 
 
 def phase_serve_c2() -> dict:
     """taobao_ssa under the paper's C2 window (`C2_WINDOW`) through the
     launcher's own entry point, `serve.run`, at full width: it pretrains
     (every step's two attentions through the local-attention kernel), runs
-    the structured ladder and serves the five variants at every size. The
-    launches are counted from 0 over the whole call and must equal
-    training's plus serving's, each worked out from the steps and calls.
-    Then, from the launcher's own pretrained parameters (pretraining
-    repeats bit for bit): the card against the CPU on `baseline` and
-    `quantized`, a window of L = 100 against the unwindowed model, and a
-    profile of `baseline` at 1 and 512. Returns the launches."""
+    the structured ladder, serves the five variants at every size and
+    calibrates each one's curve, which it serves under `REPEAT_PROFILE`.
+    The launches are counted from 0 over the whole call and must equal
+    training's plus serving's plus calibration's, each worked out from the
+    steps and calls. Then, from the launcher's own pretrained parameters
+    (pretraining repeats bit for bit): the card against the CPU on
+    `baseline` and `quantized`, a window of L = 100 against the unwindowed
+    model, a profile of `baseline` at 1 and 512, and the simulate phase on
+    the launcher's curves, whose `REPEAT_PROFILE` runs must equal
+    `serve.run`'s. Returns the launches."""
     t0 = time.perf_counter()
     base_cfg = get_config("taobao_ssa")
     cfg = with_attn_window(base_cfg, C2_WINDOW)
     dev = torch.device("cuda")
     serve.reset_launch_counts()
-    records = serve.run(cfg, sizes=SIZES, device=dev, reps=SERVE_REPS, ladder=LADDER)
+    records = serve.run(cfg, sizes=SIZES, device=dev, reps=SERVE_REPS, ladder=LADDER,
+                        profile=REPEAT_PROFILE)
     torch.cuda.synchronize()
     launches = serve.launch_counts()
     run_s = time.perf_counter() - t0
     *timed, stats = records
+    served = {r["variant"]: r for r in timed if "serving" in r}
+    timed = [r for r in timed if "serving" not in r]
     medians = {}
     for r in timed:
         v, n = r["variant"], r["size"]
@@ -806,7 +926,8 @@ def phase_serve_c2() -> dict:
             raise AssertionError(f"taobao_ssa_c2/{v}@{n}: kernel launches per call "
                                  f"{r['launches_per_call']}, expected "
                                  f"{EXPECT_LAUNCHES[('taobao_ssa_c2', v)]}")
-    calls = (serve.WARMUP + SERVE_REPS) * len(SIZES)  # serve calls of each variant
+    # serve calls of each variant: timed, then calibrated
+    calls = (serve.WARMUP + SERVE_REPS) * len(SIZES) + (1 + SERVE_REPS) * len(SIZES)
     serving = {k: calls * sum(EXPECT_LAUNCHES[("taobao_ssa_c2", v)][k] for v in medians)
                for k in _NONE}
     fine = 3 * LADDER.finetune_steps + LADDER.qat_steps  # steps through the masked linears
@@ -835,8 +956,17 @@ def phase_serve_c2() -> dict:
               "max_abs_diff": diff, "tol": PROB_TOL})
         if not diff <= PROB_TOL:
             raise AssertionError(f"{v}: a window of L and full attention differ by {diff}")
-    phase_profile("taobao_ssa_c2", "baseline", cfg, variants["baseline"], batches,
-                  medians["baseline"], (1, max(SIZES)))
+    busy = phase_profile("taobao_ssa_c2", "baseline", cfg, variants["baseline"], batches,
+                         medians["baseline"], (1, max(SIZES)))
+    if set(served) != set(medians):
+        raise AssertionError(f"serve.run gave curves for {sorted(served)}, not {sorted(medians)}")
+    curves = {v: serve.curve_from_record(r["curve"]) for v, r in served.items()}
+    runs = phase_simulate("taobao_ssa_c2", curves, {"baseline": busy[max(SIZES)]})
+    for v, r in served.items():
+        again = {k: runs[v][REPEAT_PROFILE][k] for k in r["serving"]}
+        if json.dumps(again, sort_keys=True) != json.dumps(r["serving"], sort_keys=True):
+            raise AssertionError(f"taobao_ssa_c2/{v}: serve.run's {REPEAT_PROFILE} run "
+                                 f"{r['serving']} and the same curve's again {again} differ")
     emit({"phase": "arch_done", "arch": "taobao_ssa_c2", "seconds": time.perf_counter() - t0,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
     del params, variants, batches
@@ -879,7 +1009,8 @@ def main() -> None:
     # ladder), then each arch's serve phase; each counted from 0
     by_path = {"train_taobao_ssa": train_launches}
     for arch in PORTED:
-        by_path[f"serve_{arch}"] = drive_arch(arch, ladder_variants if arch == "taobao_ssa" else None)
+        by_path[f"serve_{arch}"], by_path[f"calibrate_{arch}"] = drive_arch(
+            arch, ladder_variants if arch == "taobao_ssa" else None)
         ladder_variants = None
     by_path["serve_taobao_ssa_c2"] = phase_serve_c2()
     by_path["bench_kernels"] = phase_bench()

@@ -1,5 +1,6 @@
-"""Synthetic Taobao-like and Criteo-like data (port of the Taobao and
-Criteo parts of `repro.data.synthetic`).
+"""Synthetic Taobao-like and Criteo-like data and the serving simulator's
+lookup workloads (port of the Taobao, Criteo and serving parts of
+`repro.data.synthetic`).
 
 Pure numpy, copied so the port imports nothing of `repro`: for the same
 seed these generators give arrays identical to `repro.data.synthetic`'s.
@@ -12,7 +13,8 @@ above the 1/50 floor.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Optional
+import math
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -131,6 +133,90 @@ def taobao_eval_candidates(
     flat["item"] = cands.reshape(-1).astype(np.int32)
     flat["category"] = world.item_cat[flat["item"]].astype(np.int32)
     return {"batch": flat, "pos_idx": pos_idx, "n_cand": n_cand}
+
+
+def zipf_id_stream(
+    n: int, vocab: int, alpha: float = 1.1, *, seed: int = 0
+) -> np.ndarray:
+    """Zipf(alpha)-popular ID stream over [0, vocab): id k has rank k+1,
+    so the hottest ids are the smallest integers and p(k) ∝ (k+1)^-alpha.
+    This is the canonical embedding-lookup workload (DeepRecSys-style
+    skew): the serving caches, bench_serving experiment 6 and the cache
+    examples all draw from it. Deterministic under (n, vocab, alpha,
+    seed) — replay yields the identical array."""
+    if vocab < 1:
+        raise ValueError(f"vocab must be >= 1, got {vocab}")
+    rng = np.random.default_rng(seed)
+    p = np.arange(1, vocab + 1, dtype=np.float64) ** -float(alpha)
+    p /= p.sum()
+    return rng.choice(vocab, size=int(n), p=p).astype(np.int64)
+
+
+def update_event_stream(
+    rate_per_s: float, horizon_s: float, vocab: int,
+    rows_per_event: int = 32, *, alpha: float = 1.1, seed: int = 0,
+) -> Iterator[Tuple[float, Tuple[int, ...]]]:
+    """Lazy, time-sorted (t, ids) stream of embedding-table updates for
+    `EventLoop.add_stream("shard_update", ...)`: Poisson event times
+    (exponential gaps at `rate_per_s`) up to `horizon_s`, each event
+    publishing `rows_per_event` Zipf(alpha)-hot row ids over [0, vocab).
+    Hot rows update most often — exactly the rows the caches hold — so
+    this is the adversarial workload for the shard tier's versioned
+    invalidation (serving/shard.py): without it, staleness climbs with
+    the update rate. Deterministic under the argument tuple, and lazy
+    like the arrival streams: one pending event, not a materialised
+    list."""
+    if rate_per_s <= 0.0:
+        return
+    rng = np.random.default_rng(seed)
+    p = np.arange(1, vocab + 1, dtype=np.float64) ** -float(alpha)
+    p /= p.sum()
+    t = 0.0
+    while True:
+        t += rng.exponential(1.0 / rate_per_s)
+        if t >= horizon_s:
+            return
+        ids = rng.choice(vocab, size=int(rows_per_event), p=p)
+        yield t, tuple(int(i) for i in ids)
+
+
+def bimodal_cost_mix(
+    rank_cost: int = 512, rank_frac: float = 0.1, *,
+    point_cost: int = 1, spread: float = 0.0, modes: int = 3,
+) -> Tuple[Tuple[int, float], ...]:
+    """Weighted (cost, weight) mix for `poisson_arrivals(cost_mix=...)`
+    modelling the DeepRecSys bimodal query-size distribution: a
+    POINTWISE mode (`point_cost` items — one user/item probe) carrying
+    `1 - rank_frac` of the traffic and a RANKING mode at `rank_cost`
+    candidates carrying the rest. `spread` > 0 widens the ranking mode
+    into `modes` sizes over [rank_cost*(1-spread), rank_cost*(1+spread)]
+    with binomial-shaped weights — real candidate sets are not all
+    exactly 512 — which exercises the size-aware router's class
+    decision at more than one point on the curve. Pure and
+    deterministic: same arguments, same tuple.
+
+        bimodal_cost_mix()                      -> ((1, 0.9), (512, 0.1))
+        bimodal_cost_mix(spread=0.25, modes=3)  -> pointwise + ranking
+                                                   at 384/512/640
+    """
+    if not 0.0 <= rank_frac <= 1.0:
+        raise ValueError(f"rank_frac must be in [0, 1], got {rank_frac}")
+    mix = []
+    if rank_frac < 1.0:
+        mix.append((int(point_cost), 1.0 - rank_frac))
+    if rank_frac > 0.0:
+        if spread <= 0.0 or modes <= 1:
+            mix.append((int(rank_cost), rank_frac))
+        else:
+            sizes = np.linspace(rank_cost * (1.0 - spread),
+                                rank_cost * (1.0 + spread), int(modes))
+            # binomial-shaped weights: the central size dominates
+            w = np.array([float(math.comb(modes - 1, k))
+                          for k in range(int(modes))])
+            w = w / w.sum() * rank_frac
+            mix.extend((max(int(round(s)), 1), float(wk))
+                       for s, wk in zip(sizes, w))
+    return tuple(mix)
 
 
 def criteo_batches(

@@ -1,17 +1,23 @@
-"""Serving launcher (the pipeline of `repro.launch.serve` before its
-simulator): builds the Table-I variants of one recsys arch at full width
-and times the serve call at each batch size, on the card.
+"""Serving launcher (the pipeline of `repro.launch.serve`): builds the
+Table-I variants of one recsys arch at full width, times the serve call at
+each batch size on the card, calibrates each variant's latency curve on
+that call and serves it through the elastic engine under a traffic profile.
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch taobao_ssa|fm|dien] \
         [--variants baseline,quantized,pruned,pruned_quantized,distilled] \
         [--train-steps 40] [--structured] --sizes 1,8,32,128,512 [--device cuda] \
-        [--params params.npz] [--reps 20]
+        [--params params.npz] [--reps 20] [--profile steady|spike|ramp] [--horizon 60]
 
 Prints one JSON line per variant and size: median and p90 ms of a serve
-call, and each kernel's launches per call; then, when the ladder ran, one
-line of `variant_stats`. Parameters are random (`init_params` on the
-device, from seed 0) unless `--params` names an .npz whose keys are the
-tree's paths joined by "/" (e.g. "tables/item", "enc0/wq", "tower_w0").
+call, and each kernel's launches per call; then per variant `repro`'s line
+of the engine's p50, p99 and throughput under `--profile` (`simulate`: the
+curve `latency_model` calibrates, two replicas, autoscaling, a p99 SLO of
+100 ms, `--horizon` simulated seconds); last one JSON object,
+`{"serving": {variant: p50_ms, p99_ms, throughput, rejected, latency_1,
+latency_512}, "stats": variant_stats}` (no "stats" without the ladder).
+Parameters are random (`init_params` on the device, from seed 0) unless
+`--params` names an .npz whose keys are the tree's paths joined by "/"
+(e.g. "tables/item", "enc0/wq", "tower_w0").
 taobao_ssa, the arch with a ladder, then always pretrains, as `repro`'s
 launcher does, whichever variants are asked for: `--train-steps` steps of
 AdamW at lr 1e-3 on batches of 256 (`launch/train.make_data`, seed 0), so
@@ -27,8 +33,9 @@ local-attention kernel in pretraining, in the ladder's fine-tuning and in
 every serve call. fm and dien have no ladder and serve their weights as
 they are; `dien` has no quantized variant either (see
 `UNSERVABLE`). Requests come from `criteo_batches` for `fm` and from
-`taobao_batches` otherwise. The hand-off of the curves to the serving
-simulator comes with a later slice.
+`taobao_batches` otherwise, one draw of the largest size cut to each, so
+the 512 point times 512 requests (`repro`'s launcher cuts every size from a
+batch of 256).
 
 Matmuls run in full f32: TF32 is switched off explicitly, since the JAX
 reference is full f32.
@@ -50,6 +57,9 @@ from repro_torch.core.compression_loop import (
     LadderConfig, run_ladder, serving_params, variant_stats)
 from repro_torch.core.distillation import make_student_cfg
 from repro_torch.core.quantization import quantize_tree
+from repro_torch.core.serving.engine import ElasticEngine, EngineConfig, poisson_arrivals
+from repro_torch.core.serving.rate_limiter import TierPolicy
+from repro_torch.core.serving.replica import LatencyModel, ReplicaSpec
 from repro_torch.data.synthetic import criteo_batches, taobao_batches
 from repro_torch.kernels.augru import ops as augru_ops
 from repro_torch.kernels.block_pruned_matmul import ops as block_pruned_matmul_ops
@@ -85,6 +95,14 @@ UNSERVABLE = {
     **{(arch, v): _NO_LADDER for arch in ("fm", "augru") for v in TRAINED},
 }
 WARMUP = 3  # untimed calls at each size before the timed ones
+
+# traffic profiles, QPS at simulated time t: repro's launcher's
+PROFILES = {
+    "steady": lambda t: 300.0,
+    "spike": lambda t: 150.0 if t < 15 else (1200.0 if t < 40 else 200.0),
+    "ramp": lambda t: 50.0 + 20.0 * t,
+}
+HORIZON = 60.0  # simulated seconds
 
 # every kernel wrapper of the port, by kernel name; each counts its launches
 KERNELS = {"embedding_bag": embedding_bag_ops, "fm_interaction": fm_interaction_ops,
@@ -238,15 +256,77 @@ def calibrate_variant(params: Dict, cfg: RecSysConfig, batches: Dict[int, Dict],
     return out
 
 
+def latency_model(params: Dict, cfg: RecSysConfig, batches: Dict[int, Dict],
+                  reps: int) -> LatencyModel:
+    """The variant's service curve for the simulator: `LatencyModel.calibrate`
+    over the sizes of `batches` (one warm call, then the mean of `reps`).
+    Each call synchronises the device after it, so that the clock covers
+    the work and not only its enqueue."""
+    device = next(iter(next(iter(batches.values())).values())).device
+
+    def serve_call(b: int) -> None:
+        rec_api.serve(params, batches[b], cfg)
+        _sync(device)
+
+    return LatencyModel.calibrate(serve_call, tuple(batches), reps)
+
+
+def curve_record(lat: LatencyModel) -> Dict:
+    """A curve as JSON, exact: its sizes and its seconds at each."""
+    return {"sizes": lat.sizes.tolist(), "seconds": lat.times.tolist()}
+
+
+def curve_from_record(rec: Dict) -> LatencyModel:
+    return LatencyModel(np.asarray(rec["sizes"], np.float64), np.asarray(rec["seconds"]))
+
+
+def run_engine(name: str, lat: LatencyModel, profile: str, horizon: float = HORIZON) -> Dict:
+    """`repro`'s launcher loop for one variant: its curve behind an
+    `ElasticEngine` of two autoscaled replicas (p99 SLO 100 ms, two tiers),
+    under `profile`'s Poisson arrivals (seed 0) for `horizon` simulated
+    seconds. Returns the engine's summary."""
+    spec = ReplicaSpec(name, lat, cold_start_s=5.0, warm_start_s=0.2)
+    eng = ElasticEngine(
+        spec,
+        EngineConfig(n_replicas=2, autoscale=True, slo_p99_s=0.1),
+        tiers={"tier0": TierPolicy(2000, 200), "tier1": TierPolicy(2000, 200)},
+    )
+    arrivals = poisson_arrivals(PROFILES[profile], horizon, seed=0)
+    return eng.run(arrivals, until=horizon)
+
+
+def serving_record(res: Dict, lat: LatencyModel) -> Dict:
+    """`repro`'s six numbers of one variant's run."""
+    return {
+        "p50_ms": res["p50"] * 1e3,
+        "p99_ms": res["p99"] * 1e3,
+        "throughput": res["throughput"],
+        "rejected": res["rejected"],
+        "latency_1": lat(1) * 1e3,
+        "latency_512": lat(512) * 1e3,
+    }
+
+
+def simulate(name: str, lat: LatencyModel, profile: str, horizon: float = HORIZON) -> Dict:
+    """One variant's curve served under `profile`: `repro`'s six numbers."""
+    return serving_record(run_engine(name, lat, profile, horizon), lat)
+
+
 def run(cfg: Optional[RecSysConfig] = None, *, variants: Optional[Iterable[str]] = None,
         sizes: Iterable[int] = SIZES, device="cuda", params_path: Optional[str] = None,
         reps: int = 10, train_steps: int = TRAIN_STEPS,
-        ladder: Optional[LadderConfig] = None) -> List[Dict]:
+        ladder: Optional[LadderConfig] = None, profile: Optional[str] = None,
+        horizon: float = HORIZON) -> List[Dict]:
     """Build the variants (by default all the arch serves, `variants_for`)
     and time them; one record per (variant, size), then one of
     `variant_stats` when the ladder ran. taobao_ssa pretrains
     `train_steps` steps first (`base_params`); a trained variant among them
-    runs `ladder` (default `LADDER`)."""
+    runs `ladder` (default `LADDER`). With a `profile`, each variant's
+    sizes also give its `latency_model`, served by `simulate` for
+    `horizon` seconds: one record `{"arch", "variant", "curve", "serving"}`
+    (`curve_record`) after the variant's timed ones."""
+    if profile is not None and profile not in PROFILES:
+        raise ValueError(f"unknown profile {profile!r}; the profiles are {sorted(PROFILES)}")
     dev = resolve_device(device)
     cfg = cfg or get_config("taobao_ssa")
     variants = tuple(variants or variants_for(cfg))
@@ -265,6 +345,10 @@ def run(cfg: Optional[RecSysConfig] = None, *, variants: Optional[Iterable[str]]
                 "p90_ms": float(np.percentile(r["ms"], 90)),
                 "launches_per_call": r["launches_per_call"],
             })
+        if profile is not None:
+            lat = latency_model(vparams, vcfg, batches, reps)
+            records.append({"arch": cfg.name, "variant": name, "curve": curve_record(lat),
+                            "serving": simulate(name, lat, profile, horizon)})
     if any(v in TRAINED for v in variants):
         records.append({"arch": cfg.name, "variant_stats": variant_stats(
             {name: {"params": p} for name, p in built.items()})})
@@ -284,11 +368,15 @@ def main(argv=None) -> None:
     ap.add_argument("--sizes", default=",".join(map(str, SIZES)))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--params", default=None, help=".npz of '/'-joined parameter paths")
-    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--reps", type=int, default=10,
+                    help="timed calls a size, for the records and for each curve point")
+    ap.add_argument("--profile", default="spike", choices=sorted(PROFILES))
+    ap.add_argument("--horizon", type=float, default=HORIZON, help="simulated seconds")
     args = ap.parse_args(argv)
     if args.reps < 10:
         ap.error("--reps must be at least 10")
     disable_tf32()
+    out = {"serving": {}}
     for rec in run(
         get_config(args.arch),
         variants=args.variants.split(",") if args.variants else None,
@@ -296,8 +384,17 @@ def main(argv=None) -> None:
         device=args.device, params_path=args.params, reps=args.reps,
         train_steps=args.train_steps,
         ladder=dataclasses.replace(LADDER, structured=args.structured),
+        profile=args.profile, horizon=args.horizon,
     ):
-        print(json.dumps(rec), flush=True)
+        if "serving" in rec:
+            r = out["serving"][rec["variant"]] = rec["serving"]
+            print(f"{rec['variant']:18s} p50={r['p50_ms']:7.1f}ms p99={r['p99_ms']:7.1f}ms "
+                  f"thpt={r['throughput']:7.0f}/s svc(512)={r['latency_512']:6.1f}ms", flush=True)
+        elif "variant_stats" in rec:
+            out["stats"] = rec["variant_stats"]
+        else:
+            print(json.dumps(rec), flush=True)
+    print(json.dumps(out, indent=2, default=str), flush=True)
 
 
 if __name__ == "__main__":

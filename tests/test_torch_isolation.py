@@ -27,6 +27,7 @@ spec.loader.exec_module(mod)  # runs its imports; main() only runs under __main_
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
 print(len(names), bad)
+print(" ".join(names))
 assert not bad, bad
 """
 
@@ -40,6 +41,9 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 20  # the walk reached the whole package
+    walked = set(r.stdout.splitlines()[1].split())
+    # the serving simulator's modules, which need its package file to be walked
+    assert {"repro_torch.core.serving.engine", "repro_torch.core.serving.federation"} <= walked
 
 
 _FORBIDDEN = re.compile(
