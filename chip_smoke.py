@@ -84,6 +84,24 @@ Then two more paths, each with its launches counted from 0:
    runs equal to `serve.run`'s own).
 12. bench_kernels — `python -m repro_torch.launch.bench_kernels`'s six
    rows, every kernel at `benchmarks/bench_kernels.py`'s shapes.
+13. train — `launch/train.run`, the training launcher, for taobao_ssa,
+   fm and dien at its config (vocabularies cut to 5,000, widths as
+   configured), AdamW on batches of 256, each run in a fresh directory: 30
+   steps checkpointed every 10 that crash at step 25, the run that resumes
+   from step 20 (one restart), and an uninterrupted 30-step run, which the
+   resumed one must equal to the bit (parameters and optimizer state);
+   finite losses; launches exact (each step: the arch's serve-call lookups,
+   and one fm_interaction or augru, forward only: their backwards are plain
+   PyTorch); the uninterrupted run's checkpoint restored on the CPU to the
+   bit; a step's time with and without its backward; one SGD and one
+   AdamW step of FM and of DIEN on the card against the CPU under phase
+   5's rule; then 10 adam8bit steps of taobao_ssa, finite, and their
+   checkpoint (int8 moments) restored on the card and on the CPU to the bit.
+14. compress_and_serve — `launch/compress_and_serve.run(steps=60)`, the
+   pipeline end to end: training, the unstructured ladder at 20/20/40, each
+   variant's curve under the 45 s spike, the cached lookup of the trained
+   item table (it raises unless it equals the uncached one bit for bit),
+   and the cache-serving rows; stage seconds, launches exact.
 
 Then the `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and the exit code is
@@ -93,6 +111,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -113,9 +132,10 @@ from repro_torch.kernels.augru import augru as augru_kernel  # noqa: E402
 from repro_torch.kernels.augru import ops as augru_ops  # noqa: E402
 from repro_torch.kernels.augru.ref import augru_ref  # noqa: E402
 from repro_torch.kernels.block_pruned_matmul import block_pruned_matmul as bpm_kernel  # noqa: E402
-from repro_torch.launch import bench_kernels, serve  # noqa: E402
+from repro_torch.launch import bench_kernels, compress_and_serve, serve, train  # noqa: E402
 from repro_torch.launch.bench_kernels import bound, time_ms  # noqa: E402
 from repro_torch.launch.train import make_data  # noqa: E402
+from repro_torch.training import checkpoint  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.recsys import api  # noqa: E402
 from repro_torch.training.optimizer import adamw, sgd  # noqa: E402
@@ -176,6 +196,12 @@ SIM_PROFILES = {"taobao_ssa": ("steady", "spike", "ramp"),
                 "taobao_ssa_c2": ("steady", "spike", "ramp"), "fm": ("spike",), "dien": ("spike",)}
 REPEAT_PROFILE = "spike"
 COUNTS = ("arrived", "completed", "in_queue")  # of an engine run, beside `serve.serving_record`
+# the training launcher's phase: steps, checkpoint interval, injected crash
+# (after the checkpoint of step 20), batch, and the steps of each timing
+TRAIN_ARCHS = ("taobao_ssa", "fm", "dien")
+FT_STEPS, FT_CKPT_EVERY, FT_CRASH_AT, FT_BATCH, STEP_TIMING_REPS = 30, 10, 25, 256, 5
+ADAM8BIT_STEPS = 10
+E2E_STEPS = 60  # compress_and_serve's training steps (the example's 300, cut)
 KERNEL_SYMBOL = {"embedding_bag": "embedding_bag_kernel",
                  "fm_interaction": "fm_interaction_kernel", "augru": "augru_kernel",
                  "block_pruned_matmul": "block_pruned_matmul_",  # tall, small and rows
@@ -812,50 +838,60 @@ def _compare_step(label, before, card, host, grads):
     return worst, rows
 
 
+def _steps_vs_cpu(arch, cfg, tree_name, tree, host_batch, expect) -> None:
+    """One SGD step at lr 1, then one AdamW step, from `tree` and the same
+    batch on the card and on the CPU, held to phase 5's rule; the card's
+    launches in each step must be `expect`."""
+    card_batch = {k: v.to("cuda") for k, v in host_batch.items()}
+    host_tree = _to_cpu(tree)
+    grads = None  # the SGD step runs first and gives the CPU's clipped gradients
+    for opt_name, opt in (("sgd", sgd(1.0, momentum=0.0)), ("adamw", adamw(LADDER.lr))):
+        step = make_train_step(lambda p, b: api.loss(p, b, cfg), opt)
+        serve.reset_launch_counts()
+        t0 = time.perf_counter()
+        card, _, card_m = step(tree, opt.init(tree), card_batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = serve.launch_counts()
+        host, _, host_m = step(host_tree, opt.init(host_tree), host_batch)
+        t2 = time.perf_counter()
+        worst, rows = _compare_step(f"{arch}/{tree_name}/{opt_name}", host_tree, card, host,
+                                    grads)
+        if opt_name == "sgd":
+            grads = {path: b - a for (path, b), (_, a) in
+                     zip(tree_leaves(host_tree), tree_leaves(host)) if b.is_floating_point()}
+        loss_c, loss_h = float(card_m["loss"]), float(host_m["loss"])
+        gn_c, gn_h = float(card_m["grad_norm"]), float(host_m["grad_norm"])
+        bad = [r["leaf"] for r in rows if not r["ok"]]
+        emit({"phase": "train_vs_cpu", "arch": arch, "tree": tree_name, "optimizer": opt_name,
+              "loss_card": loss_c, "loss_cpu": loss_h, "grad_norm_card": gn_c,
+              "grad_norm_cpu": gn_h, "max_abs_diff": worst, "card_seconds": t1 - t0,
+              "cpu_seconds": t2 - t1, "launches": launches, "bad_leaves": bad,
+              "leaves": rows})
+        if launches != expect:
+            raise AssertionError(f"{arch}/{tree_name}: train step launches {launches}, "
+                                 f"expected {expect}")
+        if bad or abs(loss_c - loss_h) > LOSS_REL * abs(loss_h) or \
+                abs(gn_c - gn_h) > GRAD_NORM_REL * gn_h:
+            raise AssertionError(f"{arch}/{tree_name}/{opt_name}: card and CPU steps differ: "
+                                 f"{bad}, loss {loss_c} vs {loss_h}, gnorm {gn_c} vs {gn_h}")
+        del card, host
+    del host_tree, grads
+    torch.cuda.empty_cache()
+
+
 def phase_train_vs_cpu(params) -> None:
     """One train step from the same parameters and batch on the card and on
     the CPU: the dense tree and a structured-masked one, AdamW and SGD."""
     cfg = get_config("taobao_ssa")
     host_batch = next(make_data(cfg, serve.TRAIN_BATCH, "cpu")(3))
-    card_batch = {k: v.to("cuda") for k, v in host_batch.items()}
     masked = pruning.with_block_masks(pruning.prune_tree(
         params, pruning.prune_schedule(LADDER.prune_target, LADDER.prune_rounds)[0],
         structured=True))
     for tree_name, tree in (("dense", params), ("structured", masked)):
-        host_tree = _to_cpu(tree)
-        grads = None  # the SGD step runs first and gives the CPU's clipped gradients
-        for opt_name, opt in (("sgd", sgd(1.0, momentum=0.0)), ("adamw", adamw(LADDER.lr))):
-            step = make_train_step(lambda p, b: api.loss(p, b, cfg), opt)
-            serve.reset_launch_counts()
-            t0 = time.perf_counter()
-            card, _, card_m = step(tree, opt.init(tree), card_batch)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            launches = serve.launch_counts()
-            host, _, host_m = step(host_tree, opt.init(host_tree), host_batch)
-            t2 = time.perf_counter()
-            worst, rows = _compare_step(f"{tree_name}/{opt_name}", host_tree, card, host, grads)
-            if opt_name == "sgd":
-                grads = {path: b - a for (path, b), (_, a) in
-                         zip(tree_leaves(host_tree), tree_leaves(host)) if b.is_floating_point()}
-            loss_c, loss_h = float(card_m["loss"]), float(host_m["loss"])
-            gn_c, gn_h = float(card_m["grad_norm"]), float(host_m["grad_norm"])
-            bad = [r["leaf"] for r in rows if not r["ok"]]
-            emit({"phase": "train_vs_cpu", "tree": tree_name, "optimizer": opt_name,
-                  "loss_card": loss_c, "loss_cpu": loss_h, "grad_norm_card": gn_c,
-                  "grad_norm_cpu": gn_h, "max_abs_diff": worst, "card_seconds": t1 - t0,
-                  "cpu_seconds": t2 - t1, "launches": launches, "bad_leaves": bad,
-                  "leaves": rows})
-            expect_bpm = 15 if tree_name == "structured" else 0
-            if launches["embedding_bag"] != 5 or launches["block_pruned_matmul"] != expect_bpm:
-                raise AssertionError(f"train step launches {launches}")
-            if bad or abs(loss_c - loss_h) > LOSS_REL * abs(loss_h) or \
-                    abs(gn_c - gn_h) > GRAD_NORM_REL * gn_h:
-                raise AssertionError(f"{tree_name}/{opt_name}: card and CPU steps differ: "
-                                     f"{bad}, loss {loss_c} vs {loss_h}, gnorm {gn_c} vs {gn_h}")
-            del card, host
-        del host_tree, grads
-    torch.cuda.empty_cache()
+        _steps_vs_cpu("taobao_ssa", cfg, tree_name, tree, host_batch,
+                      {**_NONE, "embedding_bag": 5,
+                       "block_pruned_matmul": 15 if tree_name == "structured" else 0})
 
 
 def drive_arch(arch: str, variants=None) -> tuple:
@@ -996,6 +1032,181 @@ def phase_bench() -> dict:
     return launches
 
 
+def _same_bits(a, b) -> int:
+    """Leaves of two trees (flatten order) that differ in shape, dtype or bits."""
+    la, _ = checkpoint.flatten(a)
+    lb, _ = checkpoint.flatten(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"trees of {len(la)} and {len(lb)} leaves")
+    return sum(x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()) for x, y in zip(la, lb))
+
+
+def _median_ms(fn) -> float:
+    """Median ms of `STEP_TIMING_REPS` synchronised calls of `fn`, after a warm one."""
+    fn()
+    ms = []
+    for _ in range(STEP_TIMING_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def _step_ms(cfg, params, batch) -> dict:
+    """An AdamW train step (forward, backward, update) and the loss alone
+    under no_grad, in ms."""
+    opt = adamw(1e-3)
+    step = make_train_step(lambda p, b: api.loss(p, b, cfg), opt)
+    state = opt.init(params)
+    with torch.no_grad():
+        forward = _median_ms(lambda: api.loss(params, batch, cfg))
+    return {"step_ms": _median_ms(lambda: step(params, state, batch)), "loss_only_ms": forward}
+
+
+def _augru_grad_ms(B, T, g) -> dict:
+    """Median ms of `augru_op` at DIEN's training shapes: the kernel's
+    forward alone, and forward plus the plain backward (the recurrence
+    recomputed and differentiated) for zx, wh and att."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    zx, wh, h0, att, mask = _augru_inputs(B, T, g, gen)
+    leaves = [t.requires_grad_(True) for t in (zx, wh, att)]
+    dh = torch.randn((B, g), generator=gen, device="cuda")
+    with torch.no_grad():
+        forward = _median_ms(lambda: augru_ops.augru_op(zx, wh, h0, att, mask))
+    both = _median_ms(lambda: torch.autograd.grad(augru_ops.augru_op(zx, wh, h0, att, mask),
+                                                  leaves, dh))
+    return {"augru_forward_ms": forward, "augru_forward_backward_ms": both}
+
+
+def phase_train(root: Path) -> dict:
+    """The training launcher (`launch/train.run`) on the card for every
+    trained arch: crash and resume against an uninterrupted run, bit for
+    bit; exact launches; a card checkpoint restored on the CPU; FM's and
+    DIEN's steps against the CPU's; then adam8bit. Returns the launches of
+    each arch's three runs, and of the adam8bit run."""
+    by_path = {}
+    kw = dict(steps=FT_STEPS, batch=FT_BATCH, optimizer="adamw", lr=1e-3,
+              ckpt_every=FT_CKPT_EVERY, device="cuda")
+    for arch in TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        crashed, fresh = root / f"{arch}_crashed", root / f"{arch}_whole"
+        serve.reset_launch_counts()
+        try:
+            train.run(arch, ckpt_dir=str(crashed), crash_at=FT_CRASH_AT, **kw)
+        except RuntimeError as e:
+            if f"injected failure at step {FT_CRASH_AT}" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{arch}: the run did not crash at step {FT_CRASH_AT}")
+        resumed = train.run(arch, ckpt_dir=str(crashed), **kw)
+        whole = train.run(arch, ckpt_dir=str(fresh), **kw)
+        torch.cuda.synchronize()
+        launches = by_path[f"train_launcher_{arch}"] = serve.launch_counts()
+        resume_from = FT_CRASH_AT // FT_CKPT_EVERY * FT_CKPT_EVERY
+        steps_run = FT_CRASH_AT + (FT_STEPS - resume_from) + FT_STEPS
+        per_step = EXPECT_LAUNCHES[(arch, "baseline")]  # a train step's forward: the serve call's
+        expect = {k: steps_run * per_step[k] for k in _NONE}
+        differ = _same_bits((resumed["params"], resumed["opt_state"]),
+                            (whole["params"], whole["opt_state"]))
+        final = (whole["params"], whole["opt_state"])
+        on_cpu = checkpoint.restore(fresh, FT_STEPS, final, device="cpu")
+        cpu_differ = _same_bits(final, on_cpu)
+        cfg = train.reduced_config(get_config(arch))
+        host_batch = next(make_data(cfg, FT_BATCH, "cpu")(3))
+        timing = _step_ms(cfg, whole["params"], {k: v.to("cuda") for k, v in host_batch.items()})
+        if arch == "dien":  # launched after the counts are read
+            timing.update(_augru_grad_ms(FT_BATCH, cfg.seq_len, cfg.gru_dim))
+        losses = whole["losses"] + resumed["losses"]
+        emit({"phase": "train", "arch": arch, "steps": FT_STEPS, "batch": FT_BATCH,
+              "ckpt_every": FT_CKPT_EVERY, "crash_at": FT_CRASH_AT,
+              "restarts": resumed["restarts"], "resumed_steps": resumed["steps"],
+              "leaves_differing_resumed_vs_whole": differ,
+              "leaves_differing_card_ckpt_on_cpu": cpu_differ,
+              "wall_s": whole["wall_s"], "steps_per_s": whole["steps_per_s"], **timing,
+              "losses": whole["losses"], "launches": launches, "expected": expect,
+              "seconds": time.perf_counter() - t0})
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{arch}: a training loss is not finite")
+        if resumed["restarts"] != 1 or resumed["steps"] != FT_STEPS or differ:
+            raise AssertionError(f"{arch}: the resumed run ({resumed['restarts']} restarts) "
+                                 f"differs from the uninterrupted one in {differ} leaves")
+        if resumed["losses"] != whole["losses"][resume_from:]:
+            raise AssertionError(f"{arch}: the resumed run's losses differ")
+        if cpu_differ:
+            raise AssertionError(f"{arch}: the card's checkpoint restores on the CPU with "
+                                 f"{cpu_differ} leaves differing")
+        if launches != expect:
+            raise AssertionError(f"{arch} training launches {launches}, expected {expect}")
+        if arch != "taobao_ssa":
+            _steps_vs_cpu(arch, cfg, "launcher_30_steps", whole["params"], host_batch,
+                          {k: per_step[k] for k in _NONE})
+        del resumed, whole, final, on_cpu
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    serve.reset_launch_counts()
+    rec = train.run("taobao_ssa", **{**kw, "steps": ADAM8BIT_STEPS, "optimizer": "adam8bit"},
+                    ckpt_dir=str(root / "adam8bit"))
+    launches = by_path["train_launcher_adam8bit"] = serve.launch_counts()
+    tree = (rec["params"], rec["opt_state"])
+    differ = {dev: _same_bits(tree, checkpoint.restore(root / "adam8bit", ADAM8BIT_STEPS, tree,
+                                                       device=dev)) for dev in ("cuda", "cpu")}
+    codes = [x for x in checkpoint.flatten(rec["opt_state"])[0] if x.dtype == torch.int8]
+    expect = {k: ADAM8BIT_STEPS * EXPECT_LAUNCHES[("taobao_ssa", "baseline")][k] for k in _NONE}
+    emit({"phase": "train_adam8bit", "arch": "taobao_ssa", "steps": rec["steps"],
+          "losses": rec["losses"], "wall_s": rec["wall_s"], "int8_leaves": len(codes),
+          "nonzero_codes": int(sum(int((c != 0).sum()) for c in codes)),
+          "leaves_differing_after_restore": differ, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    if not np.isfinite(rec["losses"]).all() or rec["steps"] != ADAM8BIT_STEPS:
+        raise AssertionError(f"adam8bit: losses {rec['losses']}")
+    if any(differ.values()) or not codes:
+        raise AssertionError(f"adam8bit: the checkpoint restores with {differ} leaves differing")
+    if launches != expect:
+        raise AssertionError(f"adam8bit training launches {launches}, expected {expect}")
+    return by_path
+
+
+def phase_compress_and_serve(root: Path) -> dict:
+    """`launch/compress_and_serve.run(steps=E2E_STEPS)` on the card: every
+    stage's record, launches counted from 0 and worked out from its steps
+    and calls. Returns the launches."""
+    t0 = time.perf_counter()
+    serve.reset_launch_counts()
+    records = compress_and_serve.run(steps=E2E_STEPS, device="cuda", ckpt_dir=str(root / "e2e"))
+    torch.cuda.synchronize()
+    launches = serve.launch_counts()
+    for r in records:
+        emit({"phase": "compress_and_serve", **r})
+    lc, cs = compress_and_serve.LADDER, compress_and_serve
+    served = [r for r in records if r["stage"] == "serve"]
+    calls = len(cs.SIZES) * (1 + cs.CAL_REPS)  # a warm call and CAL_REPS a size
+    bags = 5 * (E2E_STEPS + lc.prune_rounds * lc.finetune_steps + lc.qat_steps) \
+        + 10 * lc.distill_steps \
+        + calls * sum(EXPECT_LAUNCHES[("taobao_ssa", r["variant"])]["embedding_bag"]
+                      for r in served) \
+        + 3  # the tier's rows, the cached lookup's reduce, the uncached lookup
+    expect = {**_NONE, "embedding_bag": bags}  # unstructured: no block-pruned linear
+    train_rec, cache_rec = records[0], records[-1]
+    emit({"phase": "compress_and_serve_launches", "launches": launches, "expected": expect,
+          "stage_seconds": {r["stage"] + (f"_{r['variant']}" if "variant" in r else ""):
+                            r["seconds"] for r in records},
+          "seconds": time.perf_counter() - t0})
+    if train_rec["steps"] != E2E_STEPS or not np.isfinite(train_rec["losses"]).all():
+        raise AssertionError(f"compress_and_serve training: {train_rec}")
+    if len(served) != 5 or not all(np.isfinite([r["p99_ms"], r["latency_512_ms"]]).all()
+                                   for r in served):
+        raise AssertionError(f"compress_and_serve served {served}")
+    if [row["cache"] for row in cache_rec.get("rows", [])] != ["none", "lru_warm"]:
+        raise AssertionError(f"compress_and_serve cache rows {cache_rec}")
+    if launches != expect:
+        raise AssertionError(f"compress_and_serve launches {launches}, expected {expect}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_device()
@@ -1014,6 +1225,12 @@ def main() -> None:
         ladder_variants = None
     by_path["serve_taobao_ssa_c2"] = phase_serve_c2()
     by_path["bench_kernels"] = phase_bench()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
+        by_path.update(phase_train(Path(root)))
+        by_path["compress_and_serve"] = phase_compress_and_serve(Path(root))
+    for path in ("train_launcher_fm", "train_launcher_dien"):
+        if not (by_path[path]["fm_interaction"] or by_path[path]["augru"]):
+            raise AssertionError(f"{path} launched neither fm_interaction nor augru")
     for name, rec in kernels.items():
         rec["launches_by_path"] = {path: n[name] for path, n in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

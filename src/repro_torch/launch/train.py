@@ -1,15 +1,49 @@
-"""Training helpers of `repro.launch.train` for the recsys family:
-`reduced_config` and `make_data`. The fault-tolerant trainer and its
-checkpoints come with a later slice.
+"""Training launcher (port of `repro.launch.train`) for the recsys family:
+
+    PYTHONPATH=src python -m repro_torch.launch.train [--arch taobao_ssa|fm|dien] \
+        [--steps 200] [--batch 256] [--optimizer adamw|sgd|adam8bit] [--lr 1e-3] \
+        [--ckpt-dir DIR] [--ckpt-every 100] [--device cuda]
+
+Config -> model -> optimizer -> fault-tolerant loop (checkpoint/resume),
+as `repro`'s: `reduced_config` cuts every vocabulary to 5,000 and keeps the
+widths, parameters come from seed 0, batches from `make_data` (seed 0),
+and `ResilientTrainer` checkpoints every `--ckpt-every` steps into
+`--ckpt-dir` (default `repro_torch_ckpt_<arch>` in the temp directory),
+restoring the latest checkpoint there first if it finds one. A checkpoint
+is `repro`'s layout, so one package's restores in the other. Prints
+`repro`'s JSON line: arch, steps, restarts, wall_s, steps_per_s.
+
+One deviation: after a restore `repro`'s launcher draws fresh batches from
+seed `start` (`make_data(cfg, batch)(start)`), so a resumed run trains on
+other data than an uninterrupted one; here the batches of a resumed run
+are the uninterrupted stream's from step `start` on (`resumable`), and a
+run that crashes and resumes ends in the same bits as one that does not.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import itertools
+import json
+import os
+import tempfile
+import time
+from typing import Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch.configs.base import RecSysConfig
+from repro_torch import resolve_device
+from repro_torch.configs.base import ARCH_NAMES, RecSysConfig, get_config
 from repro_torch.data import synthetic
+from repro_torch.models.common import init_params
+from repro_torch.models.recsys import api as rec_api
+from repro_torch.training.fault_tolerance import FTConfig, ResilientTrainer
+from repro_torch.training.optimizer import get_optimizer
+from repro_torch.training.train_loop import make_train_step
+
+# the LM and GNN families of `repro`'s launcher come with ROADMAP.md Queue 1 item 7
+_OFF_PATH = {"command_r_35b", "chatglm3_6b", "yi_6b", "olmoe_1b_7b",
+             "llama4_maverick_400b_a17b", "nequip"}
 
 
 def reduced_config(cfg: RecSysConfig) -> RecSysConfig:
@@ -29,3 +63,89 @@ def make_data(cfg: RecSysConfig, batch: int, device, seed_base: int = 0):
     return lambda step: (
         {k: torch.from_numpy(v).to(device) for k, v in b.items()} for b in gen(step)
     )
+
+
+def resumable(data: Callable) -> Callable:
+    """`start -> the batches of `data(0)` from step `start` on`: what a
+    resumed `ResilientTrainer` trains on, the uninterrupted run's stream."""
+    return lambda start: itertools.islice(data(0), start, None)
+
+
+def recording_losses(train_step: Callable, losses: List[torch.Tensor]) -> Callable:
+    """`train_step` that also appends each step's loss (a tensor, read after
+    the run: no wait for the device a step) to `losses`."""
+    def step(params, opt_state, batch):
+        params, opt_state, metrics = train_step(params, opt_state, batch)
+        losses.append(metrics["loss"])
+        return params, opt_state, metrics
+
+    return step
+
+
+def check_arch(arch: str) -> None:
+    """Raise for an arch this launcher does not train."""
+    if arch in _OFF_PATH:
+        raise NotImplementedError(
+            f"arch {arch!r}: the LM and GNN families are not ported; they come with "
+            "ROADMAP.md Queue 1 item 7")
+    get_config(arch)  # unknown or not-yet-ported recsys archs raise here
+
+
+def make_loss(cfg: RecSysConfig):
+    return lambda p, b: rec_api.loss(p, b, cfg)
+
+
+def param_defs_for(cfg: RecSysConfig):
+    return rec_api.param_defs(cfg)
+
+
+def run(arch: str, *, steps: int = 200, batch: int = 256, optimizer: str = "adamw",
+        lr: float = 1e-3, ckpt_dir: Optional[str] = None, ckpt_every: int = 100,
+        device="cuda", crash_at: Optional[int] = None) -> Dict:
+    """Train `arch` through `ResilientTrainer`; `crash_at` injects a failure
+    at that step (it raises). Returns `repro`'s record (arch, steps,
+    restarts, wall_s, steps_per_s) with "params", "opt_state" and "losses",
+    the loss of each step this call ran."""
+    check_arch(arch)
+    dev = resolve_device(device)
+    cfg = reduced_config(get_config(arch))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(param_defs_for(cfg), gen, dev)
+    opt = get_optimizer(optimizer, lr)
+    opt_state = opt.init(params)
+    losses: List[torch.Tensor] = []
+    ckpt_dir = ckpt_dir or os.path.join(tempfile.gettempdir(), f"repro_torch_ckpt_{arch}")
+    trainer = ResilientTrainer(
+        recording_losses(make_train_step(make_loss(cfg), opt), losses),
+        FTConfig(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every),
+        make_batches=resumable(make_data(cfg, batch, dev)),
+    )
+    t0 = time.time()
+    params, opt_state, restarts, last = trainer.run(params, opt_state, steps, crash_at=crash_at)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.time() - t0
+    return {"arch": arch, "steps": last, "restarts": restarts, "wall_s": round(dt, 2),
+            "steps_per_s": round(last / dt, 2), "params": params, "opt_state": opt_state,
+            "losses": [float(x) for x in losses]}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="taobao_ssa", choices=ARCH_NAMES)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--optimizer", default="adamw", choices=("sgd", "adamw", "adam8bit"))
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    rec = run(args.arch, steps=args.steps, batch=args.batch, optimizer=args.optimizer,
+              lr=args.lr, ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every,
+              device=args.device)
+    print(json.dumps({k: rec[k] for k in ("arch", "steps", "restarts", "wall_s", "steps_per_s")}))
+
+
+if __name__ == "__main__":
+    main()

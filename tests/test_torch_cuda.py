@@ -1,6 +1,7 @@
 """The Hopper kernels (embedding_bag, fm_interaction, augru,
 block_pruned_matmul, local_attention, int8_matmul) against their plain
-PyTorch versions, and the gradients through them, on the card.
+PyTorch versions, the gradients through them, the cached lookup and
+checkpoints, on the card.
 
 Every test here is marked `cuda` and skips without an NVIDIA card: a CUDA
 kernel has no CPU mode. The file imports no JAX (the card's machine has
@@ -26,6 +27,14 @@ Tolerances:
   values; f32 softmax in another order), 2e-2 in bf16 against the f32
   plain version of the same inputs, as the JAX kernel test; on views the
   same bits as on contiguous copies and as a second launch;
+- fm_interaction's and augru's gradients (autograd Functions whose
+  backward is plain PyTorch on either device): within 1e-4 of the largest
+  entry of the CPU's, as the other gradients here, and two backwards the
+  same bits; one kernel launch forward, none backward;
+- the cached lookup (`core/caching.cached_embedding_bag`): bitwise the
+  uncached lookup on the card, within 1e-5 of the largest output of the
+  CPU's (f32 sums in another order); a checkpoint written from the card
+  restores on the CPU, and back on the card, to the bit;
 - int8_matmul: the int32 accumulator equal to the plain version's (unit
   scales make it the output, exact in f32 below 2^24), the Pallas
   epilogue of it to the bit, `repro`'s ref within rtol 1e-6, atol 1e-4;
@@ -320,20 +329,168 @@ def test_every_table_gets_its_gradient_through_the_kernel_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_without_a_backward_raise_under_grad(cuda_device):
-    e = torch.randn(8, 3, 5, device=cuda_device, requires_grad=True)
+    """int8_matmul has no backward and raises under grad; fm_interaction and
+    augru, which had none before, now differentiate under grad on the card:
+    one launch forward, none backward, and the CPU's gradient."""
+    a = torch.randint(-127, 128, (4, 8), dtype=torch.int8, device=cuda_device)
+    b = torch.randint(-127, 128, (8, 3), dtype=torch.int8, device=cuda_device)
+    a_s = torch.rand(4, device=cuda_device, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
-        fm_ops.fm_interaction_op(e)
-    with torch.no_grad():
-        assert fm_ops.fm_interaction_op(e).shape == (8,)
-    g = 9
-    wh = torch.randn(g, 3 * g, device=cuda_device, requires_grad=True)
-    args = [torch.randn(2, 4, 3 * g, device=cuda_device), wh, torch.zeros(2, g, device=cuda_device),
-            torch.rand(2, 4, device=cuda_device), torch.ones(2, 4, dtype=torch.bool,
-                                                            device=cuda_device)]
-    with pytest.raises(RuntimeError, match="no backward"):
-        augru_ops.augru_op(*args)
-    with torch.no_grad():
-        assert augru_ops.augru_op(*args).shape == (2, g)
+        int8_ops.int8_matmul_op(a, b, a_s, torch.rand(3, device=cuda_device))
+    e = torch.randn(8, 3, 5)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        et = e.to(dev).requires_grad_(True)
+        before = fm_ops.launches
+        out = fm_ops.fm_interaction_op(et)
+        assert fm_ops.launches == before + (dev != "cpu")
+        (g,) = torch.autograd.grad(out, et, torch.ones(8, device=dev))
+        assert fm_ops.launches == before + (dev != "cpu")
+        grads.append(g.cpu())
+    _close_to_cpu(grads[1], grads[0], "fm e")
+    gg = 9
+    args = [torch.randn(2, 4, 3 * gg), torch.randn(gg, 3 * gg), torch.zeros(2, gg),
+            torch.rand(2, 4), torch.ones(2, 4, dtype=torch.bool)]
+    grads = []
+    for dev in ("cpu", cuda_device):
+        wh = args[1].to(dev).requires_grad_(True)
+        before = augru_ops.launches
+        out = augru_ops.augru_op(args[0].to(dev), wh, *(t.to(dev) for t in args[2:]))
+        (g,) = torch.autograd.grad(out, wh, torch.ones(2, gg, device=dev))
+        assert augru_ops.launches == before + (dev != "cpu")
+        grads.append(g.cpu())
+    _close_to_cpu(grads[1], grads[0], "augru wh")
+
+
+def _small_recsys(arch):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(arch)
+    over = {"seq_len": 20} if arch == "dien" else {}
+    return dataclasses.replace(cfg, fields=tuple(
+        dataclasses.replace(f, vocab=min(f.vocab, 1000)) for f in cfg.fields), **over)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["fm", "dien"])
+def test_fm_and_dien_gradients_on_card_match_the_cpu(cuda_device, arch):
+    """The loss gradient of every leaf through fm_interaction's and augru's
+    autograd Functions within 1e-4 of its largest entry of the CPU's; the
+    kernel launches once a step, forward, and twice gives the same bits."""
+    from repro_torch.data.synthetic import criteo_batches, taobao_batches
+    from repro_torch.launch.serve import make_params
+    from repro_torch.models.common import tree_from_leaves, tree_leaves
+    from repro_torch.models.recsys import api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _small_recsys(arch)
+    params = make_params(cfg, torch.device("cpu"), seed=0)
+    gen = criteo_batches if arch == "fm" else taobao_batches
+    batch = next(gen(cfg, 64, 1, seed=3))
+    kernel = fm_ops if arch == "fm" else augru_ops
+    grads = {}
+    for dev, runs in (("cpu", 1), (cuda_device, 2)):
+        for run in range(runs):
+            leaves = {k: v.detach().to(dev, copy=True).requires_grad_(True)
+                      for k, v in tree_leaves(params)}
+            tree = tree_from_leaves(leaves.items())
+            before = kernel.launches
+            loss, _ = api.loss(tree, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                               cfg)
+            loss.backward()
+            assert kernel.launches == before + (dev != "cpu")
+            grads[(str(dev), run)] = {k: t.grad for k, t in leaves.items()}
+    card, again = grads[(str(cuda_device), 0)], grads[(str(cuda_device), 1)]
+    top = max(float(g.abs().max()) for g in grads[("cpu", 0)].values())
+    for path, host in grads[("cpu", 0)].items():
+        assert card[path] is not None, path
+        # 1e-4 of the leaf's largest entry, or of a tenth of the whole
+        # gradient's largest where the leaf's terms cancel: DIEN's output bias
+        # at balanced labels is 3.9e-5, a sum of 64 terms of ~8e-3, and the
+        # gradient's largest entry 6.4e-3 (measured on the card: 8.4e-9 from
+        # the CPU's, against 6.4e-8 allowed)
+        scale = max(float(host.abs().max()), 0.1 * top)
+        assert float((card[path].cpu() - host).abs().max()) <= 1e-4 * scale, path
+        assert torch.equal(card[path], again[path]), path
+    assert float(card[("table",) if arch == "fm" else ("augru_wh",)].abs().sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,nnz,weighted,combiner", [
+    (64, 16, False, "sum"), (64, 16, True, "mean"), (64, 1, False, "sum"), (18, 100, True, "sum"),
+    (1, 39, False, "mean"), (10, 7, True, "sum")])
+def test_cached_embedding_bag_equals_the_uncached_lookup_on_card(cuda_device, d, nnz, weighted,
+                                                                 combiner):
+    """Bitwise, for any mix of hits and misses: one kernel launch reduces the
+    selected rows under the uncached call's launch plan."""
+    from repro_torch.core import caching
+    from repro_torch.data.synthetic import zipf_id_stream
+    from repro_torch.models.recsys.embedding import embedding_bag
+
+    V, B = 5000, 256
+    gen = torch.Generator().manual_seed(d + nnz)
+    table = torch.randn(V, d, generator=gen).to(cuda_device)
+    stream = zipf_id_stream(40_000, V, 1.1, seed=11)
+    resident = caching.build_resident_table(table, caching.hot_ids(stream, 512))
+    idx = torch.from_numpy(stream[: B * nnz].reshape(B, nnz).astype(np.int32)).to(cuda_device)
+    w = torch.rand(B, nnz, generator=gen).to(cuda_device) if weighted else None
+    hits = caching.residency_mask(resident, idx)
+    assert 0 < int(hits.sum()) < idx.numel()
+    before = ops.launches
+    cached = caching.cached_embedding_bag(table, resident, idx, mask=w, combiner=combiner)
+    assert ops.launches == before + 1
+    assert torch.equal(cached, embedding_bag(table, idx, mask=w, combiner=combiner))
+    host = caching.cached_embedding_bag(table.cpu(), caching.build_resident_table(
+        table.cpu(), caching.hot_ids(stream, 512)), idx.cpu(), None if w is None else w.cpu(),
+        combiner)
+    scale = float(host.abs().max())
+    assert float((cached.cpu() - host).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_cached_embedding_bag_refuses_a_table_whose_rows_load_otherwise(cuda_device):
+    from repro_torch.core import caching
+
+    base = torch.randn(1001 * 64 + 1, device=cuda_device)
+    table = base[1:].view(1001, 64)  # 4 bytes past a 16-byte boundary: 1 float a load
+    resident = caching.build_resident_table(table, np.arange(8))
+    idx = torch.randint(0, 1001, (16, 4), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="floats at a time"):
+        caching.cached_embedding_bag(table, resident, idx)
+
+
+@pytest.mark.cuda
+def test_a_checkpoint_written_from_the_card_restores_on_the_cpu(cuda_device, tmp_path):
+    """A train step's parameters and AdamW and adam8bit state (int8 codes,
+    the 0-d count) saved from the card restore on the CPU to the bit, and
+    back on the card."""
+    from repro_torch.data.synthetic import taobao_batches
+    from repro_torch.launch.serve import make_params
+    from repro_torch.models.recsys import api
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import get_optimizer
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = _small_recsys("taobao_ssa")
+    params = make_params(cfg, cuda_device, seed=0)
+    batch = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in next(taobao_batches(cfg, 32, 1, seed=3)).items()}
+    for i, name in enumerate(("adamw", "adam8bit")):
+        opt = get_optimizer(name, 1e-3)
+        tree = make_train_step(lambda p, b: api.loss(p, b, cfg), opt)(
+            params, opt.init(params), batch)[:2]
+        checkpoint.save(tmp_path / name, 1, tree)
+        leaves, _ = checkpoint.flatten(tree)
+        for device in ("cpu", cuda_device):
+            back, _ = checkpoint.flatten(checkpoint.restore(tmp_path / name, 1, tree,
+                                                            device=device))
+            assert len(back) == len(leaves)
+            for a, b in zip(leaves, back):
+                assert b.device.type == torch.device(device).type and b.dtype == a.dtype
+                assert torch.equal(a.cpu(), b.cpu())
+        assert any(x.dtype == torch.int8 for x in leaves) == (name == "adam8bit")
 
 
 # (B, H, L, dh, window, causal, kv_len): the C2 ranker's call (L 100, dh 16,
