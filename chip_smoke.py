@@ -15,8 +15,8 @@ Phases, one JSON line each:
 3. kernels — each kernel's wrapper on card tensors at the main paths'
    shapes, held against its plain PyTorch version on the same inputs, and
    timed beside its bound, the plain version and, where one exists, one
-   PyTorch library call: embedding_bag at taobao_ssa's, FM's and DIEN's
-   lookups, fm_interaction at FM's B=512 and the benchmark's 65,536
+   PyTorch library call: embedding_bag at taobao_ssa's, FM's, DIEN's (and
+   DIN's) and AutoInt's lookups, fm_interaction at FM's B=512 and the benchmark's 65,536
    (timed), ragged B, k of 1 to 33, e off a 16-byte boundary and examples
    too wide for shared memory (each launched twice for the same bits),
    augru at DIEN's B=512, a ragged
@@ -46,11 +46,12 @@ Phases, one JSON line each:
    on a structured-masked one (with its block masks), with AdamW and with
    SGD at lr 1: every updated leaf, tables and masks included, within the
    stated tolerance. This holds the gradients through the kernels.
-Then, for each ported arch in turn (taobao_ssa, fm, dien), at full width,
-its parameters freed before the next (taobao_ssa: the ladder's five
-trained variants; fm and dien: random weights from seed 0):
-6. serve   — the arch's variants (taobao_ssa: all five; fm: `baseline`
-   and `quantized`; dien: `baseline`) at 1/8/32/128/512 requests through
+Then, for each ported arch in turn (taobao_ssa, fm, dien, din, autoint),
+at full width, its parameters freed before the next (taobao_ssa: the
+ladder's five trained variants; the others: random weights from seed 0):
+6. serve   — the arch's variants (taobao_ssa: all five; fm and din:
+   `baseline` and `quantized`; dien and autoint: `baseline`) at
+   1/8/32/128/512 requests through
    `repro_torch.launch.serve`; every kernel's launch count is reset just
    before and read just after, and must match `EXPECT_LAUNCHES`.
 7. profile — serve calls' device busy time and each kernel's share
@@ -85,7 +86,7 @@ Then two more paths, each with its launches counted from 0:
 12. bench_kernels — `python -m repro_torch.launch.bench_kernels`'s six
    rows, every kernel at `benchmarks/bench_kernels.py`'s shapes.
 13. train — `launch/train.run`, the training launcher, for taobao_ssa,
-   fm and dien at its config (vocabularies cut to 5,000, widths as
+   fm, dien, din and autoint at its config (vocabularies cut to 5,000, widths as
    configured), AdamW on batches of 256, each run in a fresh directory: 30
    steps checkpointed every 10 that crash at step 25, the run that resumes
    from step 20 (one restart), and an uninterrupted 30-step run, which the
@@ -94,14 +95,23 @@ Then two more paths, each with its launches counted from 0:
    and one fm_interaction or augru, forward only: their backwards are plain
    PyTorch); the uninterrupted run's checkpoint restored on the CPU to the
    bit; a step's time with and without its backward; one SGD and one
-   AdamW step of FM and of DIEN on the card against the CPU under phase
-   5's rule; then 10 adam8bit steps of taobao_ssa, finite, and their
+   AdamW step of FM, DIEN, DIN and AutoInt on the card against the CPU
+   under phase 5's rule; then 10 adam8bit steps of taobao_ssa, finite, and their
    checkpoint (int8 moments) restored on the card and on the CPU to the bit.
 14. compress_and_serve — `launch/compress_and_serve.run(steps=60)`, the
-   pipeline end to end: training, the unstructured ladder at 20/20/40, each
-   variant's curve under the 45 s spike, the cached lookup of the trained
-   item table (it raises unless it equals the uncached one bit for bit),
-   and the cache-serving rows; stage seconds, launches exact.
+   pipeline end to end, checkpointing into the fresh temporary directory
+   it makes without `ckpt_dir` (which must be gone afterwards): training,
+   the unstructured ladder at 20/20/40, each variant's curve under the
+   45 s spike, the cached lookup of the trained item table (it raises
+   unless it equals the uncached one bit for bit), and the cache-serving
+   rows; stage seconds, launches exact.
+15. quickstart — `launch/quickstart` at the example's defaults (taobao_ssa
+   at vocabularies of 10,000, 100 AdamW steps at batch 512, the
+   unstructured ladder at 15/15/30): finite losses, the five variants'
+   table (params, bytes, HR@10, NDCG@50, MRR, each finite in [0, 1]; a
+   record, no threshold), launches exact, and each variant's 256 × 50
+   evaluation scores on the card against the same parameters through the
+   CPU's plain path within `PROB_TOL`.
 
 Then the `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and the exit code is
@@ -132,7 +142,7 @@ from repro_torch.kernels.augru import augru as augru_kernel  # noqa: E402
 from repro_torch.kernels.augru import ops as augru_ops  # noqa: E402
 from repro_torch.kernels.augru.ref import augru_ref  # noqa: E402
 from repro_torch.kernels.block_pruned_matmul import block_pruned_matmul as bpm_kernel  # noqa: E402
-from repro_torch.launch import bench_kernels, compress_and_serve, serve, train  # noqa: E402
+from repro_torch.launch import bench_kernels, compress_and_serve, quickstart, serve, train  # noqa: E402
 from repro_torch.launch.bench_kernels import bound, time_ms  # noqa: E402
 from repro_torch.launch.train import make_data  # noqa: E402
 from repro_torch.training import checkpoint  # noqa: E402
@@ -163,10 +173,18 @@ AUGRU_TOL = 1e-5  # absolute: h lies in (-1, 1)
 # wrong sign 2‖u‖₂. So: ‖Δ‖₂ ≤ 20% of ‖u‖₂ (measured from seed 0: 2.2e-4),
 # and an element may differ by more than 1e-6 only where its gradient is
 # below 1e-3 of its leaf's largest, with at most 1% of the elements the
-# CPU's step moved excepted.
+# CPU's step moved excepted. A leaf whose gradient is zero by the model's
+# algebra (DIN's attention-MLP output bias `attn_bout` shifts every logit
+# of a softmax, which ignores the shift) carries on each device only the
+# f32 residue of a sum that cancels (~1e-12), which AdamW turns into an
+# update of either sign, so no rule on ‖Δ‖ / ‖u‖ can hold there: a leaf
+# whose clipped gradient on both devices lies below 1e-6 of the tree's
+# largest is held instead to that floor on both (a gradient the card got
+# wrong would stand above it) and to AdamW's bound |Δ| ≤ 2·lr.
 TRAIN_SGD_MAX_REL, TRAIN_SGD_NORM_REL = 0.1, 1e-2
 TRAIN_ADAM_NORM_REL = 0.2
 TRAIN_ADAM_ATOL, TRAIN_ADAM_SMALL_GRAD, TRAIN_ADAM_SHARE = 1e-6, 1e-3, 1e-2
+TRAIN_ZERO_GRAD_REL = 1e-6
 GRAD_NORM_REL = 1e-4
 LOSS_REL = 1e-5
 LADDER = dataclasses.replace(serve.LADDER, structured=True)
@@ -188,17 +206,23 @@ EXPECT_LAUNCHES = {
     ("fm", "baseline"): {**_NONE, "embedding_bag": 2, "fm_interaction": 1},
     ("fm", "quantized"): {**_NONE, "fm_interaction": 1},
     ("dien", "baseline"): {**_NONE, "embedding_bag": 5, "augru": 1},
+    # DIN: user, item, category and the two histories; its int8 tables are
+    # gathered plainly. AutoInt: one unified-table lookup of 39 ids a row
+    ("din", "baseline"): {**_NONE, "embedding_bag": 5},
+    ("din", "quantized"): dict(_NONE),
+    ("autoint", "baseline"): {**_NONE, "embedding_bag": 1},
 }
 C2_WINDOW = 32  # the C2 path's window: a third of L = 100
 # traffic profiles each path's curves are served under (simulate phase),
 # and the one every variant runs twice, which must give the same numbers
 SIM_PROFILES = {"taobao_ssa": ("steady", "spike", "ramp"),
-                "taobao_ssa_c2": ("steady", "spike", "ramp"), "fm": ("spike",), "dien": ("spike",)}
+                "taobao_ssa_c2": ("steady", "spike", "ramp"), "fm": ("spike",), "dien": ("spike",),
+                "din": ("spike",), "autoint": ("spike",)}
 REPEAT_PROFILE = "spike"
 COUNTS = ("arrived", "completed", "in_queue")  # of an engine run, beside `serve.serving_record`
 # the training launcher's phase: steps, checkpoint interval, injected crash
 # (after the checkpoint of step 20), batch, and the steps of each timing
-TRAIN_ARCHS = ("taobao_ssa", "fm", "dien")
+TRAIN_ARCHS = ("taobao_ssa", "fm", "dien", "din", "autoint")
 FT_STEPS, FT_CKPT_EVERY, FT_CRASH_AT, FT_BATCH, STEP_TIMING_REPS = 30, 10, 25, 256, 5
 ADAM8BIT_STEPS = 10
 E2E_STEPS = 60  # compress_and_serve's training steps (the example's 300, cut)
@@ -258,7 +282,8 @@ def _embedding_bag_kernel(gen, flush) -> dict:
         _bag_case("fm_first_order_nnz39", fm_rows, 1, fm_vocab, 512, 39, False, gen, flush),
         _bag_case("fm_unified_nnz1", fm_rows, 10, fm_vocab, 512 * 39, 1, False, gen, flush),
         _bag_case("dien_item_hist_nnz1", 50_000_384, 18, 50_000_000, 512 * 100, 1, False, gen,
-                  flush),
+                  flush),  # DIN's history lookup too: the same fields
+        _bag_case("autoint_unified_nnz1", fm_rows, 16, fm_vocab, 512 * 39, 1, False, gen, flush),
     ]
     torch.cuda.empty_cache()
     for c in cases:
@@ -807,10 +832,11 @@ def phase_ladder():
     return params, variants, launches
 
 
-def _compare_step(label, before, card, host, grads):
+def _compare_step(label, before, card, host, grads, zero_grad=(), lr=0.0):
     """Every updated float leaf of the card's step against the CPU's.
     `grads` None: an SGD step at lr 1, whose update is the clipped gradient;
-    else the CPU's clipped gradients, for an AdamW step."""
+    else the CPU's clipped gradients, for an AdamW step at `lr`, and
+    `zero_grad` the leaves whose gradient is zero on both devices."""
     worst, rows = 0.0, []
     for (path, c), (_, h), (_, b) in zip(tree_leaves(card), tree_leaves(host),
                                          tree_leaves(before)):
@@ -827,6 +853,9 @@ def _compare_step(label, before, card, host, grads):
             row["max_rel"] = float(d.max() / u.max().clamp(min=1e-30))
             row["ok"] = (float(d.max()) <= TRAIN_SGD_MAX_REL * float(u.max()) + 1e-7
                          and float(d.norm()) <= TRAIN_SGD_NORM_REL * float(u.norm()) + 1e-7)
+        elif path in zero_grad:
+            row["zero_grad"] = True
+            row["ok"] = float(d.max()) <= 2 * lr
         else:
             g = grads[path].abs()
             off = (d > TRAIN_ADAM_ATOL) & (g > TRAIN_ADAM_SMALL_GRAD * g.max())
@@ -844,7 +873,7 @@ def _steps_vs_cpu(arch, cfg, tree_name, tree, host_batch, expect) -> None:
     launches in each step must be `expect`."""
     card_batch = {k: v.to("cuda") for k, v in host_batch.items()}
     host_tree = _to_cpu(tree)
-    grads = None  # the SGD step runs first and gives the CPU's clipped gradients
+    grads, zero_grad = None, ()  # the SGD step runs first and gives the clipped gradients
     for opt_name, opt in (("sgd", sgd(1.0, momentum=0.0)), ("adamw", adamw(LADDER.lr))):
         step = make_train_step(lambda p, b: api.loss(p, b, cfg), opt)
         serve.reset_launch_counts()
@@ -856,16 +885,23 @@ def _steps_vs_cpu(arch, cfg, tree_name, tree, host_batch, expect) -> None:
         host, _, host_m = step(host_tree, opt.init(host_tree), host_batch)
         t2 = time.perf_counter()
         worst, rows = _compare_step(f"{arch}/{tree_name}/{opt_name}", host_tree, card, host,
-                                    grads)
+                                    grads, zero_grad, LADDER.lr)
         if opt_name == "sgd":
             grads = {path: b - a for (path, b), (_, a) in
                      zip(tree_leaves(host_tree), tree_leaves(host)) if b.is_floating_point()}
+            card_grads = {path: (b - a).cpu() for (path, b), (_, a) in
+                          zip(tree_leaves(tree), tree_leaves(card)) if b.is_floating_point()}
+            floor = TRAIN_ZERO_GRAD_REL * max(float(g.abs().max()) for g in grads.values())
+            zero_grad = {path for path, g in grads.items()
+                         if max(float(g.abs().max()), float(card_grads[path].abs().max())) <= floor}
+            del card_grads
         loss_c, loss_h = float(card_m["loss"]), float(host_m["loss"])
         gn_c, gn_h = float(card_m["grad_norm"]), float(host_m["grad_norm"])
         bad = [r["leaf"] for r in rows if not r["ok"]]
         emit({"phase": "train_vs_cpu", "arch": arch, "tree": tree_name, "optimizer": opt_name,
               "loss_card": loss_c, "loss_cpu": loss_h, "grad_norm_card": gn_c,
-              "grad_norm_cpu": gn_h, "max_abs_diff": worst, "card_seconds": t1 - t0,
+              "grad_norm_cpu": gn_h, "max_abs_diff": worst,
+              "zero_grad_leaves": sorted("/".join(p) for p in zero_grad), "card_seconds": t1 - t0,
               "cpu_seconds": t2 - t1, "launches": launches, "bad_leaves": bad,
               "leaves": rows})
         if launches != expect:
@@ -1083,8 +1119,9 @@ def _augru_grad_ms(B, T, g) -> dict:
 def phase_train(root: Path) -> dict:
     """The training launcher (`launch/train.run`) on the card for every
     trained arch: crash and resume against an uninterrupted run, bit for
-    bit; exact launches; a card checkpoint restored on the CPU; FM's and
-    DIEN's steps against the CPU's; then adam8bit. Returns the launches of
+    bit; exact launches; a card checkpoint restored on the CPU; FM's,
+    DIEN's, DIN's and AutoInt's steps against the CPU's; then adam8bit.
+    Returns the launches of
     each arch's three runs, and of the adam8bit run."""
     by_path = {}
     kw = dict(steps=FT_STEPS, batch=FT_BATCH, optimizer="adamw", lr=1e-3,
@@ -1169,15 +1206,23 @@ def phase_train(root: Path) -> dict:
     return by_path
 
 
-def phase_compress_and_serve(root: Path) -> dict:
-    """`launch/compress_and_serve.run(steps=E2E_STEPS)` on the card: every
-    stage's record, launches counted from 0 and worked out from its steps
-    and calls. Returns the launches."""
+def _e2e_dirs() -> set:
+    tmp = Path(tempfile.gettempdir())
+    return set(tmp.glob("repro_torch_e2e_ckpt_*"))
+
+
+def phase_compress_and_serve() -> dict:
+    """`launch/compress_and_serve.run(steps=E2E_STEPS)` on the card, with no
+    `ckpt_dir`: it checkpoints into a fresh temporary directory, which must
+    be gone when it returns. Every stage's record, launches counted from 0
+    and worked out from its steps and calls. Returns the launches."""
     t0 = time.perf_counter()
+    dirs_before = _e2e_dirs()
     serve.reset_launch_counts()
-    records = compress_and_serve.run(steps=E2E_STEPS, device="cuda", ckpt_dir=str(root / "e2e"))
+    records = compress_and_serve.run(steps=E2E_STEPS, device="cuda")
     torch.cuda.synchronize()
     launches = serve.launch_counts()
+    left = sorted(map(str, _e2e_dirs() - dirs_before))
     for r in records:
         emit({"phase": "compress_and_serve", **r})
     lc, cs = compress_and_serve.LADDER, compress_and_serve
@@ -1193,8 +1238,11 @@ def phase_compress_and_serve(root: Path) -> dict:
     emit({"phase": "compress_and_serve_launches", "launches": launches, "expected": expect,
           "stage_seconds": {r["stage"] + (f"_{r['variant']}" if "variant" in r else ""):
                             r["seconds"] for r in records},
-          "seconds": time.perf_counter() - t0})
-    if train_rec["steps"] != E2E_STEPS or not np.isfinite(train_rec["losses"]).all():
+          "checkpoint_dirs_left": left, "seconds": time.perf_counter() - t0})
+    if left:
+        raise AssertionError(f"compress_and_serve left its checkpoint directories {left}")
+    if train_rec["steps"] != E2E_STEPS or train_rec["restarts"] or \
+            not np.isfinite(train_rec["losses"]).all():
         raise AssertionError(f"compress_and_serve training: {train_rec}")
     if len(served) != 5 or not all(np.isfinite([r["p99_ms"], r["latency_512_ms"]]).all()
                                    for r in served):
@@ -1203,6 +1251,59 @@ def phase_compress_and_serve(root: Path) -> dict:
         raise AssertionError(f"compress_and_serve cache rows {cache_rec}")
     if launches != expect:
         raise AssertionError(f"compress_and_serve launches {launches}, expected {expect}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_quickstart() -> dict:
+    """`launch/quickstart` at the example's defaults on the card: its
+    stages through `build`, `scores` and `table` (what `run` composes),
+    launches counted from 0 and worked out from the steps and calls; then
+    each variant's evaluation scores against the CPU's plain path from the
+    same parameters. Returns the launches."""
+    t0 = time.perf_counter()
+    serve.reset_launch_counts()
+    q = quickstart.build("cuda")
+    t1 = time.perf_counter()
+    by_variant = quickstart.scores(q)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = serve.launch_counts()
+    rows = quickstart.table(q, by_variant)
+    lc = quickstart.LADDER
+    fine = lc.prune_rounds * lc.finetune_steps + lc.qat_steps  # steps through the teacher's lookups
+    scored = sum(EXPECT_LAUNCHES[("taobao_ssa", v)]["embedding_bag"] for v in q.variants)
+    expect = {**_NONE, "embedding_bag": 5 * (quickstart.STEPS + fine) + 10 * lc.distill_steps
+              + scored}  # distillation: the teacher's lookups and the student's
+    cpu_batch = {k: v.cpu() for k, v in q.eval_batch.items()}
+    diffs = {}
+    with torch.no_grad():
+        for name, v in q.variants.items():
+            host = api.serve(_to_cpu(v["params"]), cpu_batch, v["cfg"])
+            diffs[name] = float((by_variant[name].cpu() - host).abs().max())
+    t3 = time.perf_counter()
+    emit({"phase": "quickstart", "vocab": quickstart.VOCAB, "world": quickstart.WORLD,
+          "steps": quickstart.STEPS, "batch": quickstart.BATCH,
+          "ladder": dataclasses.asdict(lc), "queries": quickstart.N_QUERIES,
+          "candidates": quickstart.N_CAND, "losses": q.losses, "rows": rows,
+          "card_vs_cpu_max_abs_diff": diffs, "tol": PROB_TOL, "launches": launches,
+          "expected": expect, "stage_seconds": {**q.seconds, "score": t2 - t1,
+                                                "cpu_score": t3 - t2},
+          "seconds": t3 - t0})
+    if len(q.losses) != quickstart.STEPS or not np.isfinite(q.losses).all():
+        raise AssertionError(f"quickstart training losses {q.losses}")
+    if [r["variant"] for r in rows] != list(serve.VARIANTS):
+        raise AssertionError(f"quickstart rows {rows}")
+    for r in rows:
+        m = [r[k] for k in ("HR@10", "NDCG@50", "MRR")]
+        if not (np.isfinite(m).all() and all(0 <= x <= 1 for x in m)):
+            raise AssertionError(f"quickstart metrics {r}")
+    bad = {v: d for v, d in diffs.items() if not d <= PROB_TOL}
+    if bad:
+        raise AssertionError(f"quickstart scores: card and CPU differ by {bad}")
+    if launches != expect:
+        raise AssertionError(f"quickstart launches {launches}, expected {expect}")
+    del q, by_variant
     torch.cuda.empty_cache()
     return launches
 
@@ -1227,7 +1328,8 @@ def main() -> None:
     by_path["bench_kernels"] = phase_bench()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
         by_path.update(phase_train(Path(root)))
-        by_path["compress_and_serve"] = phase_compress_and_serve(Path(root))
+    by_path["compress_and_serve"] = phase_compress_and_serve()
+    by_path["quickstart"] = phase_quickstart()
     for path in ("train_launcher_fm", "train_launcher_dien"):
         if not (by_path[path]["fm_interaction"] or by_path[path]["augru"]):
             raise AssertionError(f"{path} launched neither fm_interaction nor augru")

@@ -1,8 +1,8 @@
 """Recsys config dataclasses + the --arch registry (port of `repro.configs.base`).
 
 Only the recsys family's dataclasses are kept here; `get_config` knows the
-architectures the port has reached and raises `NotImplementedError` for
-the rest, naming the slice that brings them.
+five recsys architectures and raises `NotImplementedError` for the LM and
+GNN ones, naming the slice that brings them.
 """
 from __future__ import annotations
 
@@ -91,12 +91,8 @@ ARCH_NAMES = (
     "taobao_ssa",
 )
 
-# Architectures the port has reached, and the slice that brings each other one.
-PORTED = ("taobao_ssa", "fm", "dien")
-_LATER_SLICE = {
-    "din": "the recsys-families slice",
-    "autoint": "the recsys-families slice",
-}
+# Architectures the port has reached: every recsys arch of `repro`.
+PORTED = ("taobao_ssa", "fm", "dien", "din", "autoint")
 
 
 def get_config(name: str, **overrides):
@@ -105,8 +101,8 @@ def get_config(name: str, **overrides):
     if name not in ARCH_NAMES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     if name not in PORTED:
-        later = _LATER_SLICE.get(name, "the off-paper-path slice (LM / GNN families)")
-        raise NotImplementedError(f"arch {name!r} is not ported yet; it comes with {later}")
+        raise NotImplementedError(f"arch {name!r} is not ported yet; it comes with the "
+                                  "off-paper-path slice (LM / GNN families)")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     cfg = mod.config()
     if overrides:

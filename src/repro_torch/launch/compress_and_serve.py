@@ -6,8 +6,8 @@
 1. train  — taobao_ssa with every vocabulary cut to 50,000 (widths as
    configured), `TaobaoWorld(50_000, 50_000, 10_000)`, AdamW at 2e-3
    through `ResilientTrainer` (checkpoints every 100 steps into
-   `--ckpt-dir`, default `repro_torch_e2e_ckpt` in the temp directory,
-   whose latest checkpoint it restores first if there is one);
+   `--ckpt-dir`, whose latest checkpoint it restores first if there is
+   one; without one, into a fresh temporary directory removed afterwards);
 2. ladder — `run_ladder` with 20 fine-tune, 20 QAT and 40 distillation
    steps (unstructured pruning);
 3. serve  — each variant's serve call calibrated into a `LatencyModel`
@@ -23,15 +23,19 @@
 
 Prints one JSON line per record. As `repro`'s example, except: a curve
 point is the mean of `CAL_REPS` = 10 calls, not 2 (the card's host spreads
-by about 1 ms between runs), and after a restore training resumes on the
-uninterrupted batch stream (`launch/train.resumable`).
+by about 1 ms between runs); after a restore training resumes on the
+uninterrupted batch stream (`launch/train.resumable`); and without
+`--ckpt-dir` each run checkpoints into a directory of its own
+(`repro`'s example uses a fixed one, so a second run there restores the
+first's last step, trains nothing, and at another vocabulary takes the
+old run's tables).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
-import os
 import tempfile
 import time
 from typing import Dict, List, Optional
@@ -111,12 +115,19 @@ def cache_serving(baseline_lat: LatencyModel, vocab: int, stream: np.ndarray,
     return {"offered_rate": rate, "cold_rate": r_cold, "warm_rate": r_warm, "rows": rows}
 
 
-def run(*, steps: int = 300, batch: int = 512, device="cuda", ckpt_dir: Optional[str] = None,
-        vocab: int = VOCAB, ladder: LadderConfig = LADDER, sizes=SIZES,
-        horizon: float = HORIZON, cache_horizon: float = 20.0) -> List[Dict]:
+def run(*, ckpt_dir: Optional[str] = None, **kw) -> List[Dict]:
     """The four stages; one record each (stage 3: one a variant). `vocab`,
     `sizes` and the horizons cut the run for tests; the defaults are the
-    example's."""
+    example's. Without `ckpt_dir` the checkpoints go to a fresh temporary
+    directory, removed when the run ends."""
+    with (tempfile.TemporaryDirectory(prefix="repro_torch_e2e_ckpt_") if ckpt_dir is None
+          else contextlib.nullcontext(ckpt_dir)) as d:
+        return _run(ckpt_dir=d, **kw)
+
+
+def _run(*, ckpt_dir: str, steps: int = 300, batch: int = 512, device="cuda",
+         vocab: int = VOCAB, ladder: LadderConfig = LADDER, sizes=SIZES,
+         horizon: float = HORIZON, cache_horizon: float = 20.0) -> List[Dict]:
     dev = resolve_device(device)
     cfg = config(vocab)
     fields = {f.name: f.vocab for f in cfg.fields}
@@ -135,9 +146,7 @@ def run(*, steps: int = 300, batch: int = 512, device="cuda", ckpt_dir: Optional
 
     trainer = ResilientTrainer(
         recording_losses(make_train_step(lambda p, b: api.loss(p, b, cfg), opt), losses),
-        FTConfig(ckpt_dir=ckpt_dir or os.path.join(tempfile.gettempdir(),
-                                                            "repro_torch_e2e_ckpt"),
-                          ckpt_every=100),
+        FTConfig(ckpt_dir=ckpt_dir, ckpt_every=100),
         make_batches=resumable(mk_batches))
     params, _, restarts, last = trainer.run(params, opt.init(params), steps)
     _sync(dev)

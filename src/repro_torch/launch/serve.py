@@ -3,7 +3,7 @@ Table-I variants of one recsys arch at full width, times the serve call at
 each batch size on the card, calibrates each variant's latency curve on
 that call and serves it through the elastic engine under a traffic profile.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve [--arch taobao_ssa|fm|dien] \
+    PYTHONPATH=src python -m repro_torch.launch.serve [--arch taobao_ssa|fm|dien|din|autoint] \
         [--variants baseline,quantized,pruned,pruned_quantized,distilled] \
         [--train-steps 40] [--structured] --sizes 1,8,32,128,512 [--device cuda] \
         [--params params.npz] [--reps 20] [--profile steady|spike|ramp] [--horizon 60]
@@ -30,12 +30,12 @@ then run the block-pruned kernel. A taobao_ssa config that carries the
 paper's C2 local-attention window (|i−j| < W), as
 `run(with_attn_window(get_config("taobao_ssa"), W))` gives it, runs the
 local-attention kernel in pretraining, in the ladder's fine-tuning and in
-every serve call. fm and dien have no ladder and serve their weights as
-they are; `dien` has no quantized variant either (see
-`UNSERVABLE`). Requests come from `criteo_batches` for `fm` and from
-`taobao_batches` otherwise, one draw of the largest size cut to each, so
-the 512 point times 512 requests (`repro`'s launcher cuts every size from a
-batch of 256).
+every serve call. fm, dien, din and autoint have no ladder and serve
+their weights as they are; `dien` and `autoint` have no quantized variant
+either (see `UNSERVABLE`). Requests come from `criteo_batches` for `fm`
+and `autoint` and from `taobao_batches` otherwise, one draw of the
+largest size cut to each, so the 512 point times 512 requests (`repro`'s
+launcher cuts every size from a batch of 256).
 
 Matmuls run in full f32: TF32 is switched off explicitly, since the JAX
 reference is full f32.
@@ -85,6 +85,9 @@ _NO_LADDER = (
     "repro builds the trained variants for taobao_ssa only: its "
     "distillation.init_student_from_teacher (src/repro/core/distillation.py:33-39) builds a "
     "taobao_ssa student and copies the teacher's 'pos', so run_ladder raises for this arch")
+_AUTOINT_BARE_MATMUL = (
+    "repro's autoint._interact (src/repro/models/recsys/autoint.py:50-52) multiplies the "
+    "projections with a bare @, which raises on the {kind} rep dicts {maker} makes of them")
 # (interaction, variant) pairs the reference cannot serve, and why
 UNSERVABLE = {
     ("augru", "quantized"): (
@@ -92,7 +95,12 @@ UNSERVABLE = {
         "(src/repro/models/recsys/dien.py:46) multiplies the GRU weights with a bare @, "
         "which raises on the int8 rep dicts quantize_tree makes of them"
     ),
-    **{(arch, v): _NO_LADDER for arch in ("fm", "augru") for v in TRAINED},
+    ("self_attn", "quantized"): "AutoInt has no quantized variant: " + _AUTOINT_BARE_MATMUL.format(
+        kind="int8", maker="quantize_tree"),
+    **{(arch, v): _NO_LADDER for arch in ("fm", "augru", "target_attn") for v in TRAINED},
+    **{("self_attn", v): "AutoInt has no trained variants: repro's run_ladder raises in its "
+       "first fine-tune step, where " + _AUTOINT_BARE_MATMUL.format(
+           kind="masked {'w', 'mask'}", maker="prune_tree") for v in TRAINED},
 }
 WARMUP = 3  # untimed calls at each size before the timed ones
 
@@ -208,9 +216,10 @@ def build_variants(params: Dict, names: Iterable[str], cfg: RecSysConfig, *,
 
 def request_batches(cfg: RecSysConfig, sizes: Iterable[int], device, seed: int = 2) -> Dict[int, Dict]:
     """One batch of requests per size, cut from one draw of the arch's
-    generator: `criteo_batches` for FM, `taobao_batches` (one world) else."""
+    generator: `criteo_batches` for FM and AutoInt, as `repro`'s launcher
+    (`make_data`), `taobao_batches` (one world) else."""
     sizes = tuple(sizes)
-    gen = criteo_batches if cfg.interaction == "fm" else taobao_batches
+    gen = criteo_batches if cfg.interaction in ("fm", "self_attn") else taobao_batches
     b = next(gen(cfg, max(sizes), 1, seed=seed))
     return {
         n: {k: torch.from_numpy(v[:n]).to(device) for k, v in b.items() if k != "label"}
@@ -360,7 +369,7 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="taobao_ssa", choices=PORTED)
     ap.add_argument("--variants", default=None,
                     help="comma-separated; default: the arch's own (taobao_ssa: all five, "
-                         "fm: baseline and quantized, dien: baseline)")
+                         "fm and din: baseline and quantized, dien and autoint: baseline)")
     ap.add_argument("--train-steps", type=int, default=TRAIN_STEPS,
                     help="taobao_ssa's pretraining steps, before any variant is built")
     ap.add_argument("--structured", action="store_true",

@@ -1,6 +1,6 @@
 """Training launcher (port of `repro.launch.train`) for the recsys family:
 
-    PYTHONPATH=src python -m repro_torch.launch.train [--arch taobao_ssa|fm|dien] \
+    PYTHONPATH=src python -m repro_torch.launch.train [--arch taobao_ssa|fm|dien|din|autoint] \
         [--steps 200] [--batch 256] [--optimizer adamw|sgd|adam8bit] [--lr 1e-3] \
         [--ckpt-dir DIR] [--ckpt-every 100] [--device cuda]
 
@@ -11,13 +11,22 @@ and `ResilientTrainer` checkpoints every `--ckpt-every` steps into
 `--ckpt-dir` (default `repro_torch_ckpt_<arch>` in the temp directory),
 restoring the latest checkpoint there first if it finds one. A checkpoint
 is `repro`'s layout, so one package's restores in the other. Prints
-`repro`'s JSON line: arch, steps, restarts, wall_s, steps_per_s.
+`repro`'s JSON line (arch, steps, restarts, wall_s, steps_per_s) and
+`resumed_from`, the step restored (0 without a checkpoint).
 
-One deviation: after a restore `repro`'s launcher draws fresh batches from
-seed `start` (`make_data(cfg, batch)(start)`), so a resumed run trains on
-other data than an uninterrupted one; here the batches of a resumed run
-are the uninterrupted stream's from step `start` on (`resumable`), and a
-run that crashes and resumes ends in the same bits as one that does not.
+Deviations from `repro`:
+
+- after a restore `repro`'s launcher draws fresh batches from seed `start`
+  (`make_data(cfg, batch)(start)`), so a resumed run trains on other data
+  than an uninterrupted one; here the batches of a resumed run are the
+  uninterrupted stream's from step `start` on (`resumable`), and a run
+  that crashes and resumes ends in the same bits as one that does not;
+- `steps_per_s` counts the steps this call trained, `steps` minus
+  `resumed_from` (`repro` divides the last step, restored steps included,
+  by this call's seconds), and `resumed_from` is a key `repro` does not
+  print; over a finished checkpoint `steps` is the restored step and
+  `steps_per_s` 0 (`repro` reports one step more, see
+  `training/fault_tolerance.ResilientTrainer.run`).
 """
 from __future__ import annotations
 
@@ -37,10 +46,13 @@ from repro_torch.configs.base import ARCH_NAMES, RecSysConfig, get_config
 from repro_torch.data import synthetic
 from repro_torch.models.common import init_params
 from repro_torch.models.recsys import api as rec_api
+from repro_torch.training import checkpoint
 from repro_torch.training.fault_tolerance import FTConfig, ResilientTrainer
 from repro_torch.training.optimizer import get_optimizer
 from repro_torch.training.train_loop import make_train_step
 
+# `repro`'s printed keys, and the step this call resumed from
+PRINTED = ("arch", "steps", "restarts", "wall_s", "steps_per_s", "resumed_from")
 # the LM and GNN families of `repro`'s launcher come with ROADMAP.md Queue 1 item 7
 _OFF_PATH = {"command_r_35b", "chatglm3_6b", "yi_6b", "olmoe_1b_7b",
              "llama4_maverick_400b_a17b", "nequip"}
@@ -53,8 +65,8 @@ def reduced_config(cfg: RecSysConfig) -> RecSysConfig:
 
 
 def make_data(cfg: RecSysConfig, batch: int, device, seed_base: int = 0):
-    """`step -> iterator of batches` on `device`: `criteo_batches` for FM,
-    `taobao_batches` otherwise, seeded `seed_base + step`, as `repro`'s. A
+    """`step -> iterator of batches` on `device`: `criteo_batches` for FM
+    and AutoInt, `taobao_batches` otherwise, seeded `seed_base + step`, as `repro`'s. A
     fresh iterator each call, so `make_data(...)(1)` replays the same batches."""
     if cfg.interaction in ("fm", "self_attn"):
         gen = lambda step: synthetic.criteo_batches(cfg, batch, 10**9, seed=seed_base + step)  # noqa: E731
@@ -104,8 +116,8 @@ def run(arch: str, *, steps: int = 200, batch: int = 256, optimizer: str = "adam
         device="cuda", crash_at: Optional[int] = None) -> Dict:
     """Train `arch` through `ResilientTrainer`; `crash_at` injects a failure
     at that step (it raises). Returns `repro`'s record (arch, steps,
-    restarts, wall_s, steps_per_s) with "params", "opt_state" and "losses",
-    the loss of each step this call ran."""
+    restarts, wall_s, steps_per_s) with "resumed_from", "params",
+    "opt_state" and "losses", the loss of each step this call ran."""
     check_arch(arch)
     dev = resolve_device(device)
     cfg = reduced_config(get_config(arch))
@@ -120,14 +132,15 @@ def run(arch: str, *, steps: int = 200, batch: int = 256, optimizer: str = "adam
         FTConfig(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every),
         make_batches=resumable(make_data(cfg, batch, dev)),
     )
+    resumed_from = checkpoint.latest_step(ckpt_dir) or 0
     t0 = time.time()
     params, opt_state, restarts, last = trainer.run(params, opt_state, steps, crash_at=crash_at)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
     return {"arch": arch, "steps": last, "restarts": restarts, "wall_s": round(dt, 2),
-            "steps_per_s": round(last / dt, 2), "params": params, "opt_state": opt_state,
-            "losses": [float(x) for x in losses]}
+            "steps_per_s": round((last - resumed_from) / dt, 2), "resumed_from": resumed_from,
+            "params": params, "opt_state": opt_state, "losses": [float(x) for x in losses]}
 
 
 def main(argv=None) -> None:
@@ -144,7 +157,7 @@ def main(argv=None) -> None:
     rec = run(args.arch, steps=args.steps, batch=args.batch, optimizer=args.optimizer,
               lr=args.lr, ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every,
               device=args.device)
-    print(json.dumps({k: rec[k] for k in ("arch", "steps", "restarts", "wall_s", "steps_per_s")}))
+    print(json.dumps({k: rec[k] for k in PRINTED}))
 
 
 if __name__ == "__main__":

@@ -1,33 +1,20 @@
-"""Uniform recsys model API: dispatch by cfg.interaction (port of `repro.models.recsys.api`).
-
-The `self_attn_seq` (taobao_ssa), `fm` and `augru` (DIEN) interactions are
-ported; the others raise `NotImplementedError` naming the slice that
-brings them.
-"""
+"""Uniform recsys model API: dispatch by cfg.interaction (port of `repro.models.recsys.api`)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import RecSysConfig
-from repro_torch.models.recsys import dien, fm, taobao_ssa
+from repro_torch.models.recsys import autoint, dien, din, fm, taobao_ssa
 
 _MODULES = {
     "fm": fm,
+    "self_attn": autoint,
+    "target_attn": din,
     "augru": dien,
     "self_attn_seq": taobao_ssa,
-}
-_LATER = {
-    "target_attn": "the recsys-families slice (DIN)",
-    "self_attn": "the recsys-families slice (AutoInt)",
 }
 
 
 def module_for(cfg: RecSysConfig):
-    mod = _MODULES.get(cfg.interaction)
-    if mod is None:
-        later = _LATER.get(cfg.interaction, "a later slice")
-        raise NotImplementedError(
-            f"interaction {cfg.interaction!r} is not ported yet; it comes with {later}"
-        )
-    return mod
+    return _MODULES[cfg.interaction]
 
 
 def param_defs(cfg):

@@ -187,6 +187,16 @@ def flatten(tree) -> Tuple[List[Any], str]:
     return [tree], "*"
 
 
+def leaf_paths(tree, prefix: str = "") -> List[str]:
+    """The path of each leaf of `tree`, in `flatten` order: dict keys and
+    sequence positions joined by "/" (e.g. "0/tables/item")."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (tuple, list)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{prefix}{i}/")]
+    return [] if tree is None else [prefix.rstrip("/")]
+
+
 def unflatten(like, leaves: List[Any]):
     """`like`'s structure with its leaves replaced, in `flatten` order."""
     it = iter(leaves)
@@ -265,17 +275,33 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _shape_dtype(leaf) -> Tuple[List[int], str]:
+    """A leaf's shape and its numpy dtype's name, as a manifest records them."""
+    if torch.is_tensor(leaf):
+        return list(leaf.shape), str(torch.empty(0, dtype=leaf.dtype).numpy().dtype)
+    arr = np.asarray(leaf)
+    return list(arr.shape), str(arr.dtype)
+
+
 def restore(ckpt_dir, step: int, like: Any, device=None) -> Any:
     """Step `step` in `like`'s structure, each leaf a tensor of the dtype
     it was saved in, on `device` if given, else on the device of its `like`
     leaf (the CPU where that leaf is not a tensor). Refuses a checkpoint
-    whose leaf count is not `like`'s."""
+    whose leaf count is not `like`'s, and one with a leaf whose shape or
+    dtype is not its `like` leaf's, naming the leaf's path (`repro` checks
+    the count only, and restores a leaf of another shape as it was saved)."""
     path = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = unpackb((path / "manifest.msgpack").read_bytes())
     leaves_like, _ = flatten(like)
     if manifest["n_leaves"] != len(leaves_like):
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, target tree {len(leaves_like)}")
+    for name, m, ref in zip(leaf_paths(like), manifest["leaves"], leaves_like):
+        shape, dtype = _shape_dtype(ref)
+        if (list(m["shape"]), m["dtype"]) != (shape, dtype):
+            raise ValueError(
+                f"checkpoint leaf {name!r} in {path} is {m['dtype']} {tuple(m['shape'])}, "
+                f"the target's {dtype} {tuple(shape)}")
 
     out = []
     for i, (m, ref) in enumerate(zip(manifest["leaves"], leaves_like)):

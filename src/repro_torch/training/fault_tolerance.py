@@ -85,7 +85,9 @@ class ResilientTrainer:
         """Train with periodic checkpoints; `crash_at` injects a failure
         (tests). Returns (params, opt_state, restarts, last_step). A
         restored leaf goes to the device of its leaf in `(params,
-        opt_state)`."""
+        opt_state)`. A restored step at or beyond `n_steps` trains nothing
+        and is the last step (`repro` returns it + 1 there, as if one step
+        had run)."""
         start = checkpoint.latest_step(self.cfg.ckpt_dir)
         restarts = 0
         step0 = 0
@@ -95,11 +97,12 @@ class ResilientTrainer:
             restarts += 1
 
         batches = self.make_batches(step0)
-        step = step0
+        last = step0
         for step, batch in zip(range(step0, n_steps), batches):
             if crash_at is not None and step == crash_at:
                 raise RuntimeError(f"injected failure at step {step}")
             params, opt_state, metrics = self.train_step(params, opt_state, batch)
-            if (step + 1) % self.cfg.ckpt_every == 0:
-                checkpoint.save(self.cfg.ckpt_dir, step + 1, (params, opt_state))
-        return params, opt_state, restarts, step + 1
+            last = step + 1
+            if last % self.cfg.ckpt_every == 0:
+                checkpoint.save(self.cfg.ckpt_dir, last, (params, opt_state))
+        return params, opt_state, restarts, last

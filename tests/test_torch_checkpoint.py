@@ -7,6 +7,9 @@
 - The manifest is written by the port's own msgpack codec: its bytes are
   `msgpack.packb`'s, and `msgpack.unpackb` reads them back.
 - `repro`'s own checkpoint tests (`tests/test_training.py`), on the port.
+- A deviation from `repro`: `restore` refuses a leaf whose saved shape or
+  dtype is not its `like` leaf's, naming the leaf's path; `repro` checks
+  only the leaf count and hands back the saved leaf (shown below).
 """
 import pytest
 
@@ -202,3 +205,36 @@ def test_a_leaf_count_mismatch_is_refused(tmp_path):
     with pytest.raises(ValueError, match="checkpoint has 2 leaves, target tree 3"):
         checkpoint.restore(tmp_path, 4, {"a": torch.ones(2), "b": torch.ones(3),
                                          "c": torch.ones(1)})
+
+
+@pytest.mark.parametrize("saved,like,what", [
+    (torch.ones(4, 2), torch.ones(3, 2), "float32 (4, 2), the target's float32 (3, 2)"),
+    (torch.ones(4, 2), torch.ones(4, 2, dtype=torch.float64), "float32 (4, 2), the target's float64"),
+    (torch.ones(4, 2), torch.ones(8), "float32 (4, 2), the target's float32 (8,)"),
+    (torch.ones(4, dtype=torch.int8), np.ones(4, np.int32), "int8 (4,), the target's int32 (4,)"),
+])
+def test_a_leaf_of_another_shape_or_dtype_is_refused_by_its_path(tmp_path, saved, like, what):
+    checkpoint.save(tmp_path, 3, ({"tables": {"item": saved}, "b": torch.ones(2)},
+                                  {"count": torch.zeros((), dtype=torch.int32)}))
+    target = ({"tables": {"item": like}, "b": torch.ones(2)},
+              {"count": torch.zeros((), dtype=torch.int32)})
+    with pytest.raises(ValueError, match=r"'0/tables/item'") as err:
+        checkpoint.restore(tmp_path, 3, target)
+    assert what in str(err.value)
+
+
+def test_repro_restores_a_leaf_of_another_shape_as_it_was_saved(tmp_path):
+    """The fault the port repairs: a (4, 2) leaf restored into a (3, 2)
+    `like` comes back (4, 2) in `repro`, without an error."""
+    jax_checkpoint.save(tmp_path, 1, {"a": jnp.ones((4, 2))})
+    back = jax_checkpoint.restore(tmp_path, 1, {"a": jnp.ones((3, 2))})
+    assert back["a"].shape == (4, 2)
+    with pytest.raises(ValueError, match="'a'.*float32 \\(4, 2\\)"):
+        checkpoint.restore(tmp_path, 1, {"a": torch.ones(3, 2)})
+
+
+def test_leaf_paths_follow_the_flatten_order():
+    tree = ({"b": torch.ones(1), "a": {"y": torch.ones(1), "x": None, "z": [torch.ones(1)]}},
+            torch.ones(1))
+    assert checkpoint.leaf_paths(tree) == ["0/a/y", "0/a/z/0", "0/b", "1"]
+    assert len(checkpoint.leaf_paths(tree)) == len(checkpoint.flatten(tree)[0])

@@ -5,11 +5,18 @@ on the CPU.
   stage, sizes 1 and 8, horizons of a few simulated seconds) passes through
   all four stages: train, ladder, serve (five variants), cache (the cached
   lookup bitwise the uncached one; the cache-serving rows).
+- A deviation from `repro`: without `ckpt_dir` each run checkpoints into a
+  fresh temporary directory, removed when it ends, so two default runs at
+  different vocabularies share nothing (`repro`'s example uses one fixed
+  directory, whose second run restores the first's step and tables); in
+  one directory given twice, the second run at another vocabulary is
+  refused by `restore`, where `repro` took the old tables.
 - Stage 4(b) gives JSON-equal numbers to `repro`'s loop
   (`examples/compress_and_serve.py`, stage 4(b)) on the same analytic
   curve: the simulator is deterministic, so no tolerance.
 """
 import json
+import tempfile
 
 import numpy as np
 import pytest
@@ -59,6 +66,29 @@ def test_a_second_run_in_the_same_directory_restores_and_trains_no_step(tmp_path
     first = cs.run(steps=100, **kw)[0]  # the example checkpoints every 100 steps
     again = cs.run(steps=100, **kw)[0]
     assert (first["restarts"], again["restarts"], again["losses"]) == (0, 1, [])
+
+
+def test_two_default_runs_at_different_vocabularies_share_no_checkpoint(tmp_path, monkeypatch):
+    scratch = tmp_path / "tmp"
+    scratch.mkdir()
+    monkeypatch.setattr(tempfile, "tempdir", str(scratch))
+    dirs = []
+
+    class Spy(cs.ResilientTrainer):
+        def __init__(self, train_step, cfg, **kw):
+            dirs.append(cfg.ckpt_dir)
+            super().__init__(train_step, cfg, **kw)
+
+    monkeypatch.setattr(cs, "ResilientTrainer", Spy)
+    kw = dict(steps=100, batch=8, device="cpu", sizes=(1,), horizon=1.0, cache_horizon=1.0,
+              ladder=LadderConfig(finetune_steps=1, qat_steps=1, distill_steps=1))
+    runs = [cs.run(vocab=v, **kw)[0] for v in (300, 600)]  # the example checkpoints every 100
+    assert [(r["steps"], r["restarts"], len(r["losses"])) for r in runs] == [(100, 0, 100)] * 2
+    assert len(set(dirs)) == 2 and all(d.startswith(str(scratch)) for d in dirs)
+    assert list(scratch.iterdir()) == []  # each run removed its own
+    with pytest.raises(ValueError, match="tables/"):  # one directory given twice
+        for v in (300, 600):  # tables of 512 and 1,024 padded rows
+            cs.run(vocab=v, ckpt_dir=str(tmp_path / "shared"), **kw)
 
 
 def _repro_cache_loop(baseline_lat, vocab, stream, horizon):

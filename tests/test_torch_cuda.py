@@ -368,7 +368,7 @@ def _small_recsys(arch):
     from repro_torch.configs.base import get_config
 
     cfg = get_config(arch)
-    over = {"seq_len": 20} if arch == "dien" else {}
+    over = {"seq_len": 20} if arch in ("dien", "din") else {}
     return dataclasses.replace(cfg, fields=tuple(
         dataclasses.replace(f, vocab=min(f.vocab, 1000)) for f in cfg.fields), **over)
 
@@ -415,6 +415,102 @@ def test_fm_and_dien_gradients_on_card_match_the_cpu(cuda_device, arch):
         assert float((card[path].cpu() - host).abs().max()) <= 1e-4 * scale, path
         assert torch.equal(card[path], again[path]), path
     assert float(card[("table",) if arch == "fm" else ("augru_wh",)].abs().sum()) > 0
+
+
+def _recsys_batch(cfg, n, seed):
+    from repro_torch.data.synthetic import criteo_batches, taobao_batches
+
+    gen = criteo_batches if cfg.interaction in ("fm", "self_attn") else taobao_batches
+    return next(gen(cfg, n, 1, seed=seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,variant,launches", [("din", "baseline", 5), ("din", "quantized", 0),
+                                                   ("autoint", "baseline", 1)])
+def test_din_and_autoint_serve_on_card_matches_the_cpu(cuda_device, arch, variant, launches):
+    """DIN's and AutoInt's serve call on the card against the CPU's plain
+    path from the same parameters, within 1e-5 on probabilities (f32 sums
+    in another order, TF32 off), with the serve call's embedding_bag
+    launches (an int8 table is gathered plainly); DIN's retrieval too."""
+    from repro_torch.core.quantization import quantize_tree
+    from repro_torch.launch.serve import make_params
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.recsys import api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _small_recsys(arch)
+    params = make_params(cfg, torch.device("cpu"), seed=0)
+    if variant == "quantized":
+        params = quantize_tree(params)
+    batch = {k: torch.from_numpy(v) for k, v in _recsys_batch(cfg, 64, 3).items()
+             if k != "label"}
+    card_params = tree_map(lambda t: t.to(cuda_device), params)
+    before = ops.launches
+    card = api.serve(card_params, {k: v.to(cuda_device) for k, v in batch.items()}, cfg)
+    torch.cuda.synchronize()
+    assert ops.launches == before + launches
+    host = api.serve(params, batch, cfg)
+    assert card.shape == host.shape == (64,)
+    assert float((card.cpu() - host).abs().max()) <= 1e-5
+    if arch == "din":
+        query = {k: batch[k][:1] for k in ("user", "hist_item", "hist_category", "hist_len")}
+        query["cand_category"] = batch["category"][:32]
+        cand = batch["item"][:32]
+        card = api.retrieval(card_params, {k: v.to(cuda_device) for k, v in query.items()},
+                             cand.to(cuda_device), cfg)
+        host = api.retrieval(params, query, cand, cfg)
+        assert float((card.cpu() - host).abs().max()) <= 1e-5 * max(1.0, float(host.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["din", "autoint"])
+def test_din_and_autoint_gradients_and_train_step_on_card_match_the_cpu(cuda_device, arch):
+    """The loss gradient of every leaf through the lookups within 1e-4 of
+    its largest entry of the CPU's (or of a tenth of the whole gradient's
+    largest, where a leaf's terms cancel), the same bits twice, the serve
+    call's lookups a step; then one AdamW `make_train_step` on each device,
+    losses within 1e-5 relative and every updated leaf finite."""
+    from repro_torch.launch.serve import make_params
+    from repro_torch.models.common import tree_from_leaves, tree_leaves, tree_map
+    from repro_torch.models.recsys import api
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.train_loop import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _small_recsys(arch)
+    params = make_params(cfg, torch.device("cpu"), seed=0)
+    batch = _recsys_batch(cfg, 64, 3)
+    per_call = 5 if arch == "din" else 1
+    grads = {}
+    for dev, runs in (("cpu", 1), (cuda_device, 2)):
+        for run in range(runs):
+            leaves = {k: v.detach().to(dev, copy=True).requires_grad_(True)
+                      for k, v in tree_leaves(params)}
+            tree = tree_from_leaves(leaves.items())
+            before = ops.launches
+            loss, _ = api.loss(tree, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                               cfg)
+            loss.backward()
+            assert ops.launches == before + (per_call if dev != "cpu" else 0)
+            grads[(str(dev), run)] = {k: t.grad for k, t in leaves.items()}
+    card, again = grads[(str(cuda_device), 0)], grads[(str(cuda_device), 1)]
+    top = max(float(g.abs().max()) for g in grads[("cpu", 0)].values())
+    for path, host in grads[("cpu", 0)].items():
+        assert card[path] is not None, path
+        scale = max(float(host.abs().max()), 0.1 * top)
+        assert float((card[path].cpu() - host).abs().max()) <= 1e-4 * scale, path
+        assert torch.equal(card[path], again[path]), path
+    opt = adamw(1e-3)
+    step = make_train_step(lambda p, b: api.loss(p, b, cfg), opt)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        tree = tree_map(lambda t: t.to(dev), params)
+        new, _, m = step(tree, opt.init(tree), {k: torch.from_numpy(v).to(dev)
+                                                 for k, v in batch.items()})
+        out[str(dev)] = (float(m["loss"]), new)
+    (loss_h, _), (loss_c, new_c) = out["cpu"], out[str(cuda_device)]
+    assert abs(loss_c - loss_h) <= 1e-5 * abs(loss_h)
+    assert all(bool(torch.isfinite(t).all()) for _, t in tree_leaves(new_c))
 
 
 @pytest.mark.cuda

@@ -58,7 +58,7 @@ def test_criteo_batches_identical(seed):
     assert out[0]["sparse_idx"].shape == (64, 39)
 
 
-@pytest.mark.parametrize("arch", ["taobao_ssa", "fm", "dien"])
+@pytest.mark.parametrize("arch", ["taobao_ssa", "fm", "dien", "din", "autoint"])
 def test_training_data_and_reduced_config_match_repro_launch_train(arch):
     """`launch/train.make_data` yields repro's `make_data` batches (as
     tensors), replayed afresh each call, and `reduced_config` cuts the same

@@ -7,6 +7,9 @@
   launcher's batch stream (`launch/train.resumable`).
 - The heartbeat and straggler sequence of `repro`'s test gives `repro`'s
   answers in both packages.
+- A deviation from `repro`: a rerun over a finished checkpoint trains no
+  step and reports the restored step as the last one, where `repro`'s
+  trainer reports one step more (shown on `repro`'s own trainer).
 """
 import pytest
 
@@ -15,6 +18,7 @@ torch = pytest.importorskip("torch")
 import torch_workers  # noqa: E402,F401  (one torch thread per xdist worker)
 from repro.training.fault_tolerance import FTConfig as JaxFTConfig  # noqa: E402
 from repro.training.fault_tolerance import HeartbeatMonitor as JaxHeartbeatMonitor  # noqa: E402
+from repro.training.fault_tolerance import ResilientTrainer as JaxResilientTrainer  # noqa: E402
 from repro_torch.launch.train import resumable  # noqa: E402
 from repro_torch.training import checkpoint  # noqa: E402
 from repro_torch.training.fault_tolerance import (  # noqa: E402
@@ -111,3 +115,37 @@ def test_heartbeat_and_straggler_detection_give_repros_answers():
     assert ours == _heartbeat_sequence(JaxFTConfig, JaxHeartbeatMonitor)
     assert ours[0] == ["w0", "w1", "w2"] and "w0" not in ours[1]
     assert ours[2] == [] and ours[3] == ["w2"] and "w2" not in ours[4]
+
+
+def _counting_step(calls):
+    """A train step that counts its calls and the state's steps."""
+    def step(params, opt_state, batch):
+        calls.append(1)
+        return params, {"count": opt_state["count"] + 1}, {}
+    return step
+
+
+@pytest.mark.parametrize("n_steps", [4, 3])
+def test_a_rerun_over_a_finished_checkpoint_trains_nothing_and_reports_the_restored_step(
+        tmp_path, n_steps):
+    """Checkpoint of step 4, then a rerun to `n_steps` (at or below it): no
+    step runs and the last step is 4; `repro`'s trainer, run the same way,
+    reports 5 after the same zero steps."""
+    import jax.numpy as jnp
+
+    mk = lambda start: iter(lambda: {}, None)  # noqa: E731  (infinite empty batches)
+    port_calls, repro_calls = [], []
+    port = ResilientTrainer(_counting_step(port_calls), FTConfig(str(tmp_path / "port"), 2),
+                            make_batches=mk)
+    state = {"count": torch.zeros((), dtype=torch.int32)}
+    p, s, restarts, last = port.run({"w": torch.zeros(3)}, state, 4)
+    assert (restarts, last, int(s["count"]), len(port_calls)) == (0, 4, 4, 4)
+    p, s, restarts, last = port.run({"w": torch.zeros(3)}, state, n_steps)
+    assert (restarts, last, int(s["count"]), len(port_calls)) == (1, 4, 4, 4)
+
+    ref = JaxResilientTrainer(_counting_step(repro_calls),
+                              JaxFTConfig(str(tmp_path / "repro"), 2), make_batches=mk)
+    jstate = {"count": jnp.zeros((), jnp.int32)}
+    ref.run({"w": jnp.zeros(3)}, jstate, 4)
+    _, s, restarts, last = ref.run({"w": jnp.zeros(3)}, jstate, n_steps)
+    assert (restarts, last, int(s["count"]), len(repro_calls)) == (1, 5, 4, 4)

@@ -48,6 +48,9 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
     assert {"repro_torch.core.serving.engine", "repro_torch.core.serving.federation"} <= walked
     assert {"repro_torch.training.checkpoint", "repro_torch.training.fault_tolerance",
             "repro_torch.core.caching", "repro_torch.launch.compress_and_serve"} <= walked
+    assert {"repro_torch.models.recsys.din", "repro_torch.models.recsys.autoint",
+            "repro_torch.configs.din", "repro_torch.configs.autoint",
+            "repro_torch.launch.quickstart", "repro_torch.data.pipeline"} <= walked
 
 
 _FORBIDDEN = re.compile(

@@ -103,10 +103,13 @@ def test_trained_variants_need_batches():
 
 
 @pytest.mark.parametrize("arch,variants", [("fm", ["baseline", "quantized"]),
-                                           ("dien", ["baseline"])])
+                                           ("dien", ["baseline"]),
+                                           ("din", ["baseline", "quantized"]),
+                                           ("autoint", ["baseline"])])
 def test_serve_other_archs_on_cpu(arch, variants):
-    """--arch fm and dien at a tiny size: the arch's own default variants,
-    its own request generator, probabilities out of every call."""
+    """--arch fm, dien, din and autoint at a tiny size: the arch's own
+    default variants, its own request generator, probabilities out of every
+    call."""
     cfg = _tiny(arch)
     recs = serve.run(cfg, sizes=(1, 8), device="cpu", reps=10)
     assert [(r["variant"], r["size"]) for r in recs] == [(v, n) for v in variants for n in (1, 8)]
@@ -114,7 +117,7 @@ def test_serve_other_archs_on_cpu(arch, variants):
         assert r["arch"] == arch and r["launches_per_call"] == NO_LAUNCHES
         assert math.isfinite(r["median_ms"]) and 0 < r["median_ms"] <= r["p90_ms"]
     batches = serve.request_batches(cfg, (1, 8), torch.device("cpu"))
-    key = "sparse_idx" if arch == "fm" else "hist_item"
+    key = "sparse_idx" if arch in ("fm", "autoint") else "hist_item"
     assert batches[8][key].shape[0] == 8 and "label" not in batches[8]
     params = serve.make_params(cfg, torch.device("cpu"), seed=1)
     for vparams in serve.build_variants(params, variants, cfg).values():
@@ -197,14 +200,40 @@ def test_cli_without_cuda_exits_nonzero():
 
 
 def test_unported_arch_and_interaction_raise():
-    from repro_torch.models.recsys import api
+    """Every recsys arch and interaction of `repro` is ported; the LM and
+    GNN archs and unknown names are refused, as `repro`'s `api` refuses an
+    unknown interaction."""
+    from repro_torch.models.recsys import api, autoint, din
 
-    with pytest.raises(NotImplementedError, match="recsys-families slice"):
-        get_config("din")
+    with pytest.raises(NotImplementedError, match="LM / GNN"):
+        get_config("yi_6b")
     with pytest.raises(KeyError):
         get_config("no_such_arch")
-    with pytest.raises(NotImplementedError, match="DIN"):
-        api.module_for(dataclasses.replace(_tiny(), interaction="target_attn"))
+    with pytest.raises(KeyError):
+        api.module_for(dataclasses.replace(_tiny(), interaction="no_such_interaction"))
+    assert api.module_for(get_config("din")) is din
+    assert api.module_for(get_config("autoint")) is autoint
+
+
+def test_autoints_requests_come_from_criteo_batches_as_in_repros_launcher():
+    """`repro`'s serve launcher draws requests through `make_data`, which
+    sends "fm" and "self_attn" to `criteo_batches`
+    (`repro/launch/train.py:69`); the port's `request_batches` does the
+    same for AutoInt, one draw of the largest size cut to each."""
+    from repro.configs.base import get_config as jax_get_config
+    from repro.launch.train import make_data as jax_make_data
+
+    cfg = _tiny("autoint")
+    jcfg = jax_get_config("autoint")
+    jcfg = dataclasses.replace(jcfg, fields=tuple(
+        dataclasses.replace(f, vocab=min(f.vocab, 300)) for f in jcfg.fields))
+    batches = serve.request_batches(cfg, (1, 8), torch.device("cpu"))
+    want = next(jax_make_data(jcfg, 8)(2))  # repro's launcher's draw, seed 2
+    assert set(want) == {"sparse_idx", "label"}
+    for n in (1, 8):
+        assert set(batches[n]) == {"sparse_idx"}
+        np.testing.assert_array_equal(batches[n]["sparse_idx"].numpy(),
+                                      np.asarray(want["sparse_idx"])[:n])
 
 
 def test_windowed_taobao_ssa_serves_its_five_variants_on_cpu():

@@ -1,9 +1,13 @@
 """The port's training launcher, and FM and DIEN training through their
 kernels' autograd Functions, against `repro`, on the CPU.
 
-- `main` trains each ported arch (taobao_ssa, fm, dien) at the launcher's
-  config (vocabularies cut to 5,000, widths as configured) and prints the
-  keys `repro`'s launcher prints; LM and GNN archs are refused.
+- `main` trains each ported arch (taobao_ssa, fm, dien, din, autoint) at
+  the launcher's config (vocabularies cut to 5,000, widths as configured)
+  and prints the keys `repro`'s launcher prints, and `resumed_from`; LM
+  and GNN archs are refused.
+- A deviation from `repro`: a rerun over a finished checkpoint reports the
+  restored step and a rate of the steps it trained (none); `repro`'s
+  reports one step more and divides the restored steps by its seconds.
 - A crash and a resume end in the bits of an uninterrupted run: the
   resumed run trains on the uninterrupted stream's batches. `repro`'s
   launcher draws fresh ones from seed `start` after a restore, which this
@@ -56,13 +60,13 @@ def test_repros_launcher_prints_these_keys(tmp_path, monkeypatch, capsys):
     assert set(_json_line(capsys.readouterr().out)) == KEYS
 
 
-@pytest.mark.parametrize("arch", ["taobao_ssa", "fm", "dien"])
+@pytest.mark.parametrize("arch", ["taobao_ssa", "fm", "dien", "din", "autoint"])
 def test_main_trains_each_arch_on_the_cpu_and_prints_repros_keys(arch, tmp_path, capsys):
     train.main(["--arch", arch, "--device", "cpu", "--steps", "3", "--batch", "8",
                 "--ckpt-every", "2", "--ckpt-dir", str(tmp_path)])
     rec = _json_line(capsys.readouterr().out)
-    assert set(rec) == KEYS and rec["arch"] == arch and rec["steps"] == 3
-    assert rec["restarts"] == 0 and checkpoint.latest_step(tmp_path) == 2
+    assert set(rec) == KEYS | {"resumed_from"} and rec["arch"] == arch and rec["steps"] == 3
+    assert rec["restarts"] == rec["resumed_from"] == 0 and checkpoint.latest_step(tmp_path) == 2
 
 
 @pytest.mark.parametrize("arch", ["yi_6b", "llama4_maverick_400b_a17b", "nequip"])
@@ -73,14 +77,16 @@ def test_lm_and_gnn_archs_are_refused(arch, tmp_path):
 
 
 def test_unported_recsys_archs_and_cuda_without_a_card_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train.run("din", steps=1, ckpt_dir=str(tmp_path), device="cpu")
+    """Every recsys arch of `repro` is ported now: an arch `repro` does not
+    know is refused, as `repro`'s `get_config` refuses it."""
+    with pytest.raises(KeyError, match="unknown arch"):
+        train.run("dcn", steps=1, ckpt_dir=str(tmp_path), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train.run("fm", steps=1, ckpt_dir=str(tmp_path))  # the default device
 
 
-@pytest.mark.parametrize("arch", ["taobao_ssa", "fm", "dien"])
+@pytest.mark.parametrize("arch", ["taobao_ssa", "fm", "dien", "din", "autoint"])
 def test_a_crashed_and_resumed_run_ends_in_the_bits_of_an_uninterrupted_one(arch, tmp_path):
     kw = dict(steps=6, batch=8, ckpt_every=2, device="cpu")
     with pytest.raises(RuntimeError, match="injected failure at step 5"):
@@ -88,6 +94,7 @@ def test_a_crashed_and_resumed_run_ends_in_the_bits_of_an_uninterrupted_one(arch
     resumed = train.run(arch, ckpt_dir=str(tmp_path / "a"), **kw)
     whole = train.run(arch, ckpt_dir=str(tmp_path / "b"), **kw)
     assert (resumed["restarts"], whole["restarts"], resumed["steps"]) == (1, 0, 6)
+    assert (resumed["resumed_from"], whole["resumed_from"]) == (4, 0)
     assert len(resumed["losses"]) == 2 and len(whole["losses"]) == 6
     assert resumed["losses"] == whole["losses"][4:] and all(np.isfinite(whole["losses"]))
     a, _ = checkpoint.flatten((resumed["params"], resumed["opt_state"]))
@@ -232,3 +239,25 @@ def test_each_launcher_resumes_the_others_checkpoint(tmp_path, monkeypatch, caps
     lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
     assert [(r["steps"], r["restarts"]) for r in lines] == [(3, 0), (5, 1), (6, 1)]
     assert checkpoint.latest_step(d) == 5
+
+
+def test_a_rerun_over_a_finished_checkpoint_reports_the_restored_step_and_no_steps(
+        tmp_path, monkeypatch, capsys):
+    """A deviation from `repro`: over a checkpoint of step 4, a run to 4
+    trains nothing and prints steps 4, resumed_from 4 and steps_per_s 0;
+    `repro`'s launcher, run the same way, prints steps 5 and a rate of
+    restored steps."""
+    d = str(tmp_path)
+    argv = ["--arch", "fm", "--steps", "4", "--batch", "8", "--ckpt-every", "2", "--ckpt-dir", d]
+    train.main(argv + ["--device", "cpu"])
+    train.main(argv + ["--device", "cpu"])
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    jax_train.main()
+    first, again, ref = (json.loads(x) for x in capsys.readouterr().out.strip().splitlines())
+    assert (first["steps"], first["restarts"], first["resumed_from"]) == (4, 0, 0)
+    assert (again["steps"], again["restarts"], again["resumed_from"]) == (4, 1, 4)
+    assert again["steps_per_s"] == 0
+    assert (ref["steps"], ref["restarts"]) == (5, 1) and ref["steps_per_s"] > 0
+    assert checkpoint.latest_step(d) == 4
+    rec = train.run("fm", steps=4, batch=8, ckpt_every=2, ckpt_dir=d, device="cpu")
+    assert rec["losses"] == [] and rec["steps"] == rec["resumed_from"] == 4
