@@ -112,6 +112,30 @@ Then two more paths, each with its launches counted from 0:
    record, no threshold), launches exact, and each variant's 256 × 50
    evaluation scores on the card against the same parameters through the
    CPU's plain path within `PROB_TOL`.
+16. lm_serve — the LM family, which launches none of the six kernels
+   (counted from 0, each must stay 0): `yi_6b` and `olmoe_1b_7b` as
+   configured, full width and depth, bf16, weights from seed 0 on the
+   card; the parameter count of `param_defs` beside the config's; a
+   prefill of 4 × 2,048 tokens (`lm_token_batches`, seed 0; KV chunks of
+   1,024), the caches placed in 2,112 positions, 64 greedy decode steps;
+   prefill ms, decode ms a step (median of 64), tokens a second and
+   `max_memory_allocated`, each beside its bound (`_lm_flops_bytes` at the
+   spec sheet's bf16 rate and HBM rate). yi_6b: the decode of token 1,023
+   at position 1,023 from a 1,023-token prefill against the last position
+   of a 1,024-token prefill, and the C2 decode at the config's window
+   (every global sample a duplicate) against that dense decode, both
+   within `LM_DECODE_TOL`; then 64 C2 steps under `LM_C2_OVERRIDES`,
+   timed. olmoe_1b_7b: the entries each capacity stage of the prefill's
+   one-group dispatch dropped, and the experts each decode step chose.
+   Then each at full width with 2 layers in f32 on the card against the
+   CPU (2 × 128 tokens: prefill logits, 4 decode steps, the loss) within
+   `LM_CARD_CPU_TOL`.
+Phase 13 also trains `yi_6b` and `olmoe_1b_7b` through the launcher
+(its LM config: 2 layers, d 128, vocab 512, bf16; crash, resume and
+uninterrupted runs the same bits; a step on the card against the CPU's in
+f32 under phase 5's rule), and each at full width cut to 2 layers (0.87 B
+and 1.05 B parameters, bf16, AdamW) for 8 steps on one batch of 4 × 128
+tokens, timed: the loss must fall.
 
 Then the `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and the exit code is
@@ -131,7 +155,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs.base import PORTED, get_config, with_attn_window  # noqa: E402
+from repro_torch.configs.base import RECSYS_ARCHS, get_config, with_attn_window  # noqa: E402
 from repro_torch.core import pruning  # noqa: E402
 from repro_torch.core.compression_loop import run_ladder, serving_params, variant_stats  # noqa: E402
 from repro_torch.core.quantization import quantize_weight  # noqa: E402
@@ -146,7 +170,9 @@ from repro_torch.launch import bench_kernels, compress_and_serve, quickstart, se
 from repro_torch.launch.bench_kernels import bound, time_ms  # noqa: E402
 from repro_torch.launch.train import make_data  # noqa: E402
 from repro_torch.training import checkpoint  # noqa: E402
-from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.common import init_params, param_count, tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.recsys import api  # noqa: E402
 from repro_torch.training.optimizer import adamw, sgd  # noqa: E402
 from repro_torch.training.train_loop import make_train_step  # noqa: E402
@@ -222,10 +248,32 @@ REPEAT_PROFILE = "spike"
 COUNTS = ("arrived", "completed", "in_queue")  # of an engine run, beside `serve.serving_record`
 # the training launcher's phase: steps, checkpoint interval, injected crash
 # (after the checkpoint of step 20), batch, and the steps of each timing
-TRAIN_ARCHS = ("taobao_ssa", "fm", "dien", "din", "autoint")
+TRAIN_ARCHS = ("taobao_ssa", "fm", "dien", "din", "autoint", "yi_6b", "olmoe_1b_7b")
 FT_STEPS, FT_CKPT_EVERY, FT_CRASH_AT, FT_BATCH, STEP_TIMING_REPS = 30, 10, 25, 256, 5
 ADAM8BIT_STEPS = 10
 E2E_STEPS = 60  # compress_and_serve's training steps (the example's 300, cut)
+# the LM phases: phase 16 `lm_serve` and phase 13's LM runs. yi_6b and
+# olmoe_1b_7b are the LM configs whose bf16 weights (12.1 and 13.8 GB) one
+# 80 GB card holds with room for their caches and activations
+LM_SERVE_ARCHS = ("yi_6b", "olmoe_1b_7b")
+LM_BATCH, LM_PREFILL, LM_DECODE_STEPS, LM_PREFILL_REPS = 4, 2048, 64, 3
+LM_CACHE = LM_PREFILL + LM_DECODE_STEPS  # 2,112 positions
+LM_CHECK_S = 1024  # decode against prefill: one KV chunk, dense attention
+LM_C2_OVERRIDES = {"attn_window": 512, "attn_n_global": 128}
+# decode against prefill, relative to the largest |logit|, bf16: decode's
+# scores are a bf16 product (`repro`'s einsum has no f32 output type there)
+# where prefill's are f32, and the difference passes 32 layers; set before
+# the first card run from 1.8e-2 in a CPU run at 32 layers of width 512
+LM_DECODE_TOL = 5e-2
+# card against CPU: full width, 2 layers, f32 with TF32 off, 2 x 128 tokens
+LM_CPU_LAYERS, LM_CPU_TOKENS, LM_CPU_DECODE, LM_CARD_CPU_TOL = 2, (2, 128), 4, 1e-5
+# the full-width training step: 2 layers, bf16, AdamW, one batch of 4 x
+# 128 tokens, 8 steps. `repro`'s arch smoke test's lr of 3e-3 moves every
+# weight of width 4,096 (std 0.016) by a fifth in AdamW's first step: yi's
+# loss went 11.87, 3.37, 7.89, 9.39, ... 9.82 on the card; 1e-4 overfits
+LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_STEPS, LM_TRAIN_LR = 2, 4, 8, 1e-4
+# the spec sheet's dense bf16 rate and HBM rate of an H100 SXM at 700 W
+H100_BF16_FLOPS, H100_HBM_BYTES_PER_S = 989e12, 3.35e12
 KERNEL_SYMBOL = {"embedding_bag": "embedding_bag_kernel",
                  "fm_interaction": "fm_interaction_kernel", "augru": "augru_kernel",
                  "block_pruned_matmul": "block_pruned_matmul_",  # tall, small and rows
@@ -875,7 +923,7 @@ def _steps_vs_cpu(arch, cfg, tree_name, tree, host_batch, expect) -> None:
     host_tree = _to_cpu(tree)
     grads, zero_grad = None, ()  # the SGD step runs first and gives the clipped gradients
     for opt_name, opt in (("sgd", sgd(1.0, momentum=0.0)), ("adamw", adamw(LADDER.lr))):
-        step = make_train_step(lambda p, b: api.loss(p, b, cfg), opt)
+        step = make_train_step(train.make_loss(cfg), opt)
         serve.reset_launch_counts()
         t0 = time.perf_counter()
         card, _, card_m = step(tree, opt.init(tree), card_batch)
@@ -1094,10 +1142,11 @@ def _step_ms(cfg, params, batch) -> dict:
     """An AdamW train step (forward, backward, update) and the loss alone
     under no_grad, in ms."""
     opt = adamw(1e-3)
-    step = make_train_step(lambda p, b: api.loss(p, b, cfg), opt)
+    loss = train.make_loss(cfg)
+    step = make_train_step(loss, opt)
     state = opt.init(params)
     with torch.no_grad():
-        forward = _median_ms(lambda: api.loss(params, batch, cfg))
+        forward = _median_ms(lambda: loss(params, batch))
     return {"step_ms": _median_ms(lambda: step(params, state, batch)), "loss_only_ms": forward}
 
 
@@ -1114,6 +1163,48 @@ def _augru_grad_ms(B, T, g) -> dict:
     both = _median_ms(lambda: torch.autograd.grad(augru_ops.augru_op(zx, wh, h0, att, mask),
                                                   leaves, dh))
     return {"augru_forward_ms": forward, "augru_forward_backward_ms": both}
+
+
+def _lm_full_width_steps(arch: str) -> dict:
+    """`arch` at full width cut to `LM_TRAIN_LAYERS` layers, bf16, AdamW
+    (`LM_TRAIN_LR`) on one batch of `LM_TRAIN_BATCH` rows of 128 tokens,
+    `LM_TRAIN_STEPS` steps, each synchronised and timed: the loss must
+    fall, as `repro`'s arch smoke test asks of its reduced LMs; then the
+    loss alone under no_grad. Returns the launches (none)."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=LM_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    defs = transformer.param_defs(cfg)
+    params = init_params(defs, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = {k: v.to("cuda") for k, v in next(make_data(cfg, LM_TRAIN_BATCH, "cpu")(0)).items()}
+    opt = adamw(LM_TRAIN_LR)
+    step = make_train_step(train.make_loss(cfg), opt)
+    state = opt.init(params)
+    serve.reset_launch_counts()
+    losses, ms = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(metrics["loss"]))
+    with torch.no_grad():
+        loss_ms = _median_ms(lambda: transformer.loss(params, batch, cfg))
+    launches = serve.launch_counts()
+    emit({"phase": "train_full_width", "arch": arch, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "params": param_count(defs),
+          "batch": [LM_TRAIN_BATCH, train.LM_SEQ], "optimizer": "adamw", "lr": LM_TRAIN_LR,
+          "losses": losses, "step_ms": ms, "step_ms_median_after_first": float(np.median(ms[1:])),
+          "loss_only_ms": loss_ms, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} full-width training: the loss did not fall: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"{arch} full-width training launched kernels: {launches}")
+    del params, state, metrics
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_train(root: Path) -> dict:
@@ -1143,7 +1234,8 @@ def phase_train(root: Path) -> dict:
         launches = by_path[f"train_launcher_{arch}"] = serve.launch_counts()
         resume_from = FT_CRASH_AT // FT_CKPT_EVERY * FT_CKPT_EVERY
         steps_run = FT_CRASH_AT + (FT_STEPS - resume_from) + FT_STEPS
-        per_step = EXPECT_LAUNCHES[(arch, "baseline")]  # a train step's forward: the serve call's
+        # a train step's forward: the serve call's; an LM's launches none
+        per_step = EXPECT_LAUNCHES.get((arch, "baseline"), _NONE)
         expect = {k: steps_run * per_step[k] for k in _NONE}
         differ = _same_bits((resumed["params"], resumed["opt_state"]),
                             (whole["params"], whole["opt_state"]))
@@ -1176,11 +1268,18 @@ def phase_train(root: Path) -> dict:
                                  f"{cpu_differ} leaves differing")
         if launches != expect:
             raise AssertionError(f"{arch} training launches {launches}, expected {expect}")
-        if arch != "taobao_ssa":
+        if cfg.family == "lm":  # in f32: a bf16 leaf's update lies below its rounding step
+            cfg = dataclasses.replace(cfg, dtype="float32")
+            _steps_vs_cpu(arch, cfg, "launcher_30_steps_f32",
+                          tree_map(lambda t: t.float(), whole["params"]), host_batch, dict(_NONE))
+        elif arch != "taobao_ssa":
             _steps_vs_cpu(arch, cfg, "launcher_30_steps", whole["params"], host_batch,
                           {k: per_step[k] for k in _NONE})
         del resumed, whole, final, on_cpu
         torch.cuda.empty_cache()
+
+    for arch in LM_SERVE_ARCHS:
+        by_path[f"train_full_width_{arch}"] = _lm_full_width_steps(arch)
 
     t0 = time.perf_counter()
     serve.reset_launch_counts()
@@ -1308,6 +1407,252 @@ def phase_quickstart() -> dict:
     return launches
 
 
+def _lm_flops_bytes(cfg, batch: int, seq: int, experts=None) -> dict:
+    """What a prefill of `batch` x `seq` tokens must compute and move, and
+    what one decode step of `batch` tokens at a cache of `seq` positions
+    must read, on this run's data:
+    - prefill FLOPs: 2 a weight a token over the layer weights each token
+      uses (attention, a dense FFN, or router + top_k experts + shared
+      ones), the last position's logits (2·B·V·D), and causal attention
+      (QKᵀ and PV over the S(S+1)/2 pairs a row needs); prefill bytes:
+      every weight read once, the embedding rows, the caches written;
+    - decode bytes: the layer weights the step reads (an MoE layer's
+      experts: `experts[i]`, those the step's tokens chose in MoE layer i,
+      the configured top_k when not given), the output table, the
+      embedding rows, and the caches' keys and values up to `seq`
+      positions; decode FLOPs: 2 a weight a token."""
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    n_super, n_dense, n_moe = transformer._moe_layout(cfg)
+    attn = D * H * hd + 2 * D * K * hd + H * hd * D
+    ffn = 3 * D * cfg.d_ff
+    used = stored = step_read = 0
+    moe_i = 0
+    for _ in range(n_super):
+        for j in range(n_dense + n_moe if cfg.n_experts else 1):
+            if cfg.n_experts and (cfg.moe_interleave == 1 or j == 1):
+                always = attn + cfg.n_shared_experts * ffn + D * cfg.n_experts
+                chosen = cfg.top_k if experts is None else experts[moe_i]
+                moe_i += 1
+                used += always + cfg.top_k * ffn
+                stored += always + cfg.n_experts * ffn
+                step_read += always + chosen * ffn
+            else:
+                used, stored, step_read = used + attn + ffn, stored + attn + ffn, \
+                    step_read + attn + ffn
+    elem = 2 if cfg.dtype == "bfloat16" else 4
+    tokens, table = batch * seq, cfg.vocab_size * D
+    cache = cfg.n_layers * 2 * K * hd * elem  # bytes of keys and values a position a row
+    return {
+        "prefill_flops": 2 * tokens * used + 2 * batch * table
+        + cfg.n_layers * 4 * batch * H * hd * seq * (seq + 1) // 2,
+        "prefill_bytes": elem * (stored + table + tokens * D) + tokens * cache,
+        "decode_bytes": elem * (step_read + table + batch * D) + batch * seq * cache,
+        "decode_flops": 2 * batch * (used + table)}
+
+
+def _lm_bound_ms(flops: float, nbytes: float) -> tuple:
+    t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _timed(fn):
+    """(fn(), ms): `fn` between two synchronisations of the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _in_cache(cfg, kv, T):
+    """Prefilled caches (k, v) [L,B,S,K,hd] placed at the start of zeroed
+    caches of T positions."""
+    out = []
+    for c in kv:
+        full = torch.zeros(transformer.cache_shape(cfg, c.shape[1], T), dtype=c.dtype,
+                           device=c.device)
+        full[:, :, :c.shape[2]] = c
+        out.append(full)
+    return tuple(out)
+
+
+def _decode_steps(params, cache, token, start, n, cfg, stats=None):
+    """`n` greedy decode steps from position `start`, each timed alone:
+    (the steps' logits, their ms, the last cache)."""
+    logits, ms = [], []
+    for i in range(n):
+        pos = torch.full((token.shape[0],), start + i, dtype=torch.int64, device=token.device)
+        (lg, cache), t = _timed(lambda: transformer.decode(params, cache, token, pos, cfg, stats))
+        logits.append(lg)
+        ms.append(t)
+        token = torch.argmax(lg, -1)
+    return logits, ms, cache
+
+
+def _rel_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / a.float().abs().max())
+
+
+def _lm_card_vs_cpu(arch: str) -> dict:
+    """`arch` at full width with `LM_CPU_LAYERS` layers in f32 (TF32 is off
+    since phase 1) from seed 0 on the card and the same weights on the CPU,
+    on `LM_CPU_TOKENS`: prefill logits, `LM_CPU_DECODE` decode steps fed
+    the card's greedy tokens, and the loss, within `LM_CARD_CPU_TOL`."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=LM_CPU_LAYERS, dtype="float32")
+    card = init_params(transformer.param_defs(cfg), torch.Generator(device="cuda").manual_seed(1),
+                       "cuda")
+    host = _to_cpu(card)
+    B, S = LM_CPU_TOKENS
+    batch = next(synthetic.lm_token_batches(cfg.vocab_size, B, S, 1, seed=1))
+    out = {}
+    t0 = time.perf_counter()
+    for side, dev, params in (("card", "cuda", card), ("cpu", "cpu", host)):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            loss, _ = transformer.loss(params, b, cfg)
+            logits, kv = transformer.prefill(params, b["tokens"], cfg)
+            cache = _in_cache(cfg, kv, S + LM_CPU_DECODE)
+            steps, token = [], torch.argmax(logits, -1)
+            for i in range(LM_CPU_DECODE):
+                if side == "cpu":  # the card's greedy tokens
+                    token = out["card"]["tokens"][i].to(dev)
+                pos = torch.full((B,), S + i, dtype=torch.int64, device=dev)
+                lg, cache = transformer.decode(params, cache, token, pos, cfg)
+                steps.append(lg.cpu())
+                token = torch.argmax(lg, -1)
+        logits = [logits.cpu()] + steps
+        out[side] = {"loss": float(loss), "logits": logits,
+                     "tokens": [torch.argmax(x, -1) for x in logits]}
+    diffs = [_rel_diff(h, c) for h, c in zip(out["cpu"]["logits"], out["card"]["logits"])]
+    loss_rel = abs(out["card"]["loss"] - out["cpu"]["loss"]) / abs(out["cpu"]["loss"])
+    rec = {"n_layers": cfg.n_layers, "dtype": cfg.dtype, "tokens": [B, S],
+           "loss_card": out["card"]["loss"], "loss_cpu": out["cpu"]["loss"],
+           "loss_rel_diff": loss_rel, "prefill_rel_diff": diffs[0], "decode_rel_diffs": diffs[1:],
+           "tol": LM_CARD_CPU_TOL, "seconds": time.perf_counter() - t0}
+    if max(diffs + [loss_rel]) > LM_CARD_CPU_TOL:
+        raise AssertionError(f"{arch}: card and CPU differ: {rec}")
+    del card, host
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_lm_serve(arch: str) -> dict:
+    """`arch` as configured, at full width and depth, bf16, from seed 0 on
+    the card: prefill `LM_BATCH` x `LM_PREFILL` tokens (`attn_impl`
+    "chunked": KV chunks of `q_chunk`), the caches placed in `LM_CACHE`
+    positions, `LM_DECODE_STEPS` greedy decode steps; each timed beside
+    its bound. Dense archs also: decode against a longer prefill, the C2
+    decode at the default window against the dense one, and the C2 decode
+    under `LM_C2_OVERRIDES` timed. MoE archs: the entries each capacity
+    stage of the prefill's dispatch dropped. Then the card against the CPU
+    (`_lm_card_vs_cpu`). Returns the launches (none)."""
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    defs = transformer.param_defs(cfg)
+    params = init_params(defs, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    weights_bytes = torch.cuda.memory_allocated() - mem0
+    batch = next(synthetic.lm_token_batches(cfg.vocab_size, LM_BATCH, LM_PREFILL, 1, seed=0))
+    tokens = torch.from_numpy(batch["tokens"]).to("cuda")
+    serve.reset_launch_counts()
+    rec = {"phase": "lm_serve", "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "n_experts": cfg.n_experts,
+           "top_k": cfg.top_k, "dtype": cfg.dtype, "attn_impl": cfg.attn_impl,
+           "kv_chunk": cfg.q_chunk, "params_config": cfg.param_count(),
+           "params_active_config": cfg.active_param_count(), "params_defs": param_count(defs),
+           "weights_bytes": weights_bytes, "batch": LM_BATCH, "prefill_tokens": LM_PREFILL,
+           "cache_positions": LM_CACHE, "decode_steps": LM_DECODE_STEPS}
+    with torch.no_grad():
+        stats = {}
+        transformer.prefill(params, tokens, cfg, stats)  # warm, and the dispatch's record
+        if cfg.n_experts:
+            rec["prefill_dropped"] = {k: int(sum(int(n) for n in v)) for k, v in stats.items()}
+            rec["prefill_entries"] = cfg.n_layers * LM_BATCH * LM_PREFILL * cfg.top_k
+        runs = [_timed(lambda: transformer.prefill(params, tokens, cfg))
+                for _ in range(LM_PREFILL_REPS)]
+        logits, kv = runs[-1][0]
+        prefill_ms = float(np.median([t for _, t in runs]))
+        cache = _in_cache(cfg, kv, LM_CACHE)
+        del kv, runs
+        token = torch.argmax(logits, -1)
+        steps, ms, _ = _decode_steps(params, cache, token, LM_PREFILL, LM_DECODE_STEPS, cfg)
+        experts = None
+        if cfg.n_experts:  # the same steps again, untimed, for the experts each one chose
+            stats = {}
+            _decode_steps(params, cache, token, LM_PREFILL, LM_DECODE_STEPS, cfg, stats)
+            per_step = torch.stack(stats["experts"]).view(LM_DECODE_STEPS, cfg.n_layers).cpu()
+            experts = per_step.float().mean(0).tolist()  # the mean over the steps, a layer
+            rec["decode_experts_chosen_mean"] = float(per_step.float().mean())
+            rec["decode_dropped"] = int(sum(int(n) for n in stats["dropped"]))
+    decode_ms = float(np.median(ms))
+    work = _lm_flops_bytes(cfg, LM_BATCH, LM_PREFILL)
+    dwork = _lm_flops_bytes(cfg, LM_BATCH, LM_PREFILL + LM_DECODE_STEPS // 2, experts)
+    p_bound, p_by = _lm_bound_ms(work["prefill_flops"], work["prefill_bytes"])
+    d_bound, d_by = _lm_bound_ms(dwork["decode_flops"], dwork["decode_bytes"])
+    rec.update({
+        "prefill_ms": prefill_ms, "prefill_tokens_per_s":
+            LM_BATCH * LM_PREFILL / prefill_ms * 1e3, "prefill_flops": work["prefill_flops"],
+        "prefill_bytes": work["prefill_bytes"],
+        "prefill_bound_ms": p_bound, "prefill_bound_by": p_by,
+        "decode_ms_median": decode_ms, "decode_ms_first": ms[0], "decode_ms_max": max(ms),
+        "decode_tokens_per_s": LM_BATCH / decode_ms * 1e3, "decode_bytes": dwork["decode_bytes"],
+        "decode_bound_ms": d_bound, "decode_bound_by": d_by,
+        "peak_bf16_flops": H100_BF16_FLOPS, "hbm_bytes_per_s": H100_HBM_BYTES_PER_S})
+    finite = all(torch.isfinite(x).all() for x in [logits] + steps)
+    if not cfg.n_experts:
+        rec.update(_lm_dense_checks(params, cfg, tokens, cache, token))
+    rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    rec["launches"] = serve.launch_counts()
+    del params, cache, logits, steps
+    torch.cuda.empty_cache()
+    rec["card_vs_cpu"] = _lm_card_vs_cpu(arch)
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    if not finite or not rec.get("c2_finite", True):
+        raise AssertionError(f"{arch}: logits not finite")
+    if rec["params_defs"] != rec["params_config"]:
+        raise AssertionError(f"{arch}: param_defs holds {rec['params_defs']} parameters, "
+                             f"the config {rec['params_config']}")
+    for key in ("decode_vs_prefill_rel_diff", "c2_default_vs_dense_rel_diff"):
+        if key in rec and not rec[key] <= LM_DECODE_TOL:
+            raise AssertionError(f"{arch}: {key} {rec[key]} above {LM_DECODE_TOL}")
+    if any(rec["launches"].values()):
+        raise AssertionError(f"{arch}: the LM path launched kernels: {rec['launches']}")
+    return rec["launches"]
+
+
+def _lm_dense_checks(params, cfg, tokens, cache, token) -> dict:
+    """Decode against prefill: the caches of a prefill of `LM_CHECK_S` - 1
+    tokens in `LM_CHECK_S` positions, token `LM_CHECK_S` - 1 decoded at
+    that position, against the last position of a prefill of all
+    `LM_CHECK_S` (at most one KV chunk: dense attention); the C2 decode at
+    the config's window (4,096 >= `LM_CHECK_S`: every global sample a
+    duplicate) against that dense decode; and `LM_DECODE_STEPS` C2 steps
+    under `LM_C2_OVERRIDES` from position `LM_PREFILL`, timed."""
+    n = LM_CHECK_S
+    with torch.no_grad():
+        full, _ = transformer.prefill(params, tokens[:, :n], cfg)
+        _, kv = transformer.prefill(params, tokens[:, :n - 1], cfg)
+        short = _in_cache(cfg, kv, n)
+        del kv
+        pos = torch.full((tokens.shape[0],), n - 1, dtype=torch.int64, device="cuda")
+        dense, _ = transformer.decode(params, short, tokens[:, n - 1], pos, cfg)
+        c2 = dataclasses.replace(cfg, sparse_attention=True)
+        hybrid, _ = transformer.decode(params, short, tokens[:, n - 1], pos, c2)
+        c2_small = dataclasses.replace(c2, **LM_C2_OVERRIDES)
+        steps, ms, _ = _decode_steps(params, cache, token, LM_PREFILL, LM_DECODE_STEPS, c2_small)
+    c2_ms = float(np.median(ms))
+    return {"decode_vs_prefill_positions": n, "decode_vs_prefill_rel_diff": _rel_diff(full, dense),
+            "c2_default_window": cfg.attn_window, "c2_default_n_global": cfg.attn_n_global,
+            "c2_default_vs_dense_rel_diff": _rel_diff(dense, hybrid), "tol": LM_DECODE_TOL,
+            "c2_overrides": LM_C2_OVERRIDES, "c2_decode_ms_median": c2_ms,
+            "c2_decode_tokens_per_s": tokens.shape[0] / c2_ms * 1e3,
+            "c2_finite": bool(all(torch.isfinite(x).all() for x in steps))}
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_device()
@@ -1320,7 +1665,7 @@ def main() -> None:
     # launches by main path: taobao_ssa's training (pretraining and the
     # ladder), then each arch's serve phase; each counted from 0
     by_path = {"train_taobao_ssa": train_launches}
-    for arch in PORTED:
+    for arch in RECSYS_ARCHS:
         by_path[f"serve_{arch}"], by_path[f"calibrate_{arch}"] = drive_arch(
             arch, ladder_variants if arch == "taobao_ssa" else None)
         ladder_variants = None
@@ -1330,6 +1675,8 @@ def main() -> None:
         by_path.update(phase_train(Path(root)))
     by_path["compress_and_serve"] = phase_compress_and_serve()
     by_path["quickstart"] = phase_quickstart()
+    for arch in LM_SERVE_ARCHS:
+        by_path[f"lm_serve_{arch}"] = phase_lm_serve(arch)
     for path in ("train_launcher_fm", "train_launcher_dien"):
         if not (by_path[path]["fm_interaction"] or by_path[path]["augru"]):
             raise AssertionError(f"{path} launched neither fm_interaction nor augru")

@@ -1,14 +1,100 @@
-"""Recsys config dataclasses + the --arch registry (port of `repro.configs.base`).
+"""Config dataclasses + the --arch registry (port of `repro.configs.base`).
 
-Only the recsys family's dataclasses are kept here; `get_config` knows the
-five recsys architectures and raises `NotImplementedError` for the LM and
-GNN ones, naming the slice that brings them.
+The LM and recsys families' dataclasses are kept here, every field
+included (those only `repro`'s sharding reads, such as `moe_impl`,
+`seq_sharded_residual` and `train_layout`, too, so that a config means the
+same in both packages); `get_config` knows the five LM and five recsys
+architectures and raises `NotImplementedError` for the GNN one (`nequip`),
+naming the slice that brings it.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Tuple
+
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    family: str  # "lm"
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    # positional encoding
+    rope_theta: float = 10_000.0
+    rope_fraction: float = 1.0  # chatglm3 rotates only half the head dims ("2d" RoPE)
+    # norm / bias conventions
+    use_bias: bool = False
+    norm_type: str = "rmsnorm"  # "rmsnorm" | "layernorm"
+    parallel_block: bool = False  # command-r style parallel attn+FFN residual
+    tie_embeddings: bool = False
+    # MoE (n_experts == 0 -> dense)
+    n_experts: int = 0
+    top_k: int = 0
+    moe_interleave: int = 1  # 1: every layer MoE; 2: every other layer (llama4)
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    moe_impl: str = "ep"  # "ep" shard_map all-to-all | "gspmd" auto-sharded
+    # paper technique C2: hybrid sparse attention (window + sampled globals)
+    sparse_attention: bool = False
+    attn_window: int = 4_096
+    attn_n_global: int = 1_024
+    # compute policy
+    dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "full"  # "full" | "dots" | "none"  (§Perf knob)
+    pad_vocab: bool = False  # pad V to /512 so the LM head shards on vocab
+    # distribution policy knobs (hillclimbed in §Perf)
+    seq_sharded_residual: bool = False  # Megatron-SP style residual sharding
+    attn_impl: str = "chunked"  # "dense" | "chunked" flash-style
+    q_chunk: int = 1_024
+    flash_remat: bool = False  # remat the flash step (drop per-chunk scores)
+    train_layout: str = "fsdp"  # "fsdp" | "tp" weight layout for training
+    int8_serve: bool = False  # C5: int8 weights/tables on the serving path
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks + head)."""
+        d, h = self.d_model, self.resolved_head_dim
+        attn = d * (self.n_heads * h) + 2 * d * (self.n_kv_heads * h) + (self.n_heads * h) * d
+        dense_ffn = 3 * d * self.d_ff  # SwiGLU: gate, up, down
+        n_moe = self.n_layers // self.moe_interleave if self.n_experts else 0
+        n_dense = self.n_layers - n_moe
+        ffn = n_dense * dense_ffn
+        if self.n_experts:
+            per_expert = 3 * d * self.d_ff
+            ffn += n_moe * (self.n_experts + self.n_shared_experts) * per_expert
+            ffn += n_moe * d * self.n_experts  # router
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        norms = self.n_layers * 2 * d + d
+        return self.n_layers * attn + ffn + emb + norms
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if not self.n_experts:
+            return self.param_count()
+        d = self.d_model
+        per_expert = 3 * d * self.d_ff
+        n_moe = self.n_layers // self.moe_interleave
+        inactive = n_moe * (self.n_experts - self.top_k) * per_expert
+        return self.param_count() - inactive
+
+
+# ---------------------------------------------------------------------------
+# RecSys family
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,8 +177,10 @@ ARCH_NAMES = (
     "taobao_ssa",
 )
 
-# Architectures the port has reached: every recsys arch of `repro`.
-PORTED = ("taobao_ssa", "fm", "dien", "din", "autoint")
+# Architectures the port has reached: every LM and recsys arch of `repro`.
+LM_ARCHS = ("command_r_35b", "chatglm3_6b", "yi_6b", "olmoe_1b_7b", "llama4_maverick_400b_a17b")
+RECSYS_ARCHS = ("taobao_ssa", "fm", "dien", "din", "autoint")
+PORTED = LM_ARCHS + RECSYS_ARCHS
 
 
 def get_config(name: str, **overrides):
@@ -102,9 +190,13 @@ def get_config(name: str, **overrides):
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     if name not in PORTED:
         raise NotImplementedError(f"arch {name!r} is not ported yet; it comes with the "
-                                  "off-paper-path slice (LM / GNN families)")
+                                  "GNN slice (ROADMAP.md Queue 1: configs/nequip.py, models/gnn)")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     cfg = mod.config()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+def family_of(name: str) -> str:
+    return get_config(name).family

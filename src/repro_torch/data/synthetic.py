@@ -1,6 +1,6 @@
-"""Synthetic Taobao-like and Criteo-like data and the serving simulator's
-lookup workloads (port of the Taobao, Criteo and serving parts of
-`repro.data.synthetic`).
+"""Synthetic Taobao-like and Criteo-like data, the serving simulator's
+lookup workloads and the LM token streams (port of the Taobao, Criteo,
+serving and LM parts of `repro.data.synthetic`).
 
 Pure numpy, copied so the port imports nothing of `repro`: for the same
 seed these generators give arrays identical to `repro.data.synthetic`'s.
@@ -239,3 +239,21 @@ def criteo_batches(
         logits = 0.5 * (np.square(s).sum(-1) - np.square(e).sum(axis=(1, 2)))
         label = (logits > np.median(logits)).astype(np.float32)
         yield {"sparse_idx": idx.astype(np.int32), "label": label}
+
+
+def lm_token_batches(
+    vocab: int, batch: int, seq: int, steps: int, *, seed: int = 0
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Markov-chain token streams (learnable bigram structure)."""
+    rng = np.random.default_rng(seed)
+    # sparse bigram transition: each token has 8 likely successors
+    succ = rng.integers(0, vocab, (vocab, 8))
+    for _ in range(steps):
+        toks = np.empty((batch, seq + 1), np.int32)
+        toks[:, 0] = rng.integers(0, vocab, batch)
+        for t in range(seq):
+            pick = succ[toks[:, t], rng.integers(0, 8, batch)]
+            rand = rng.integers(0, vocab, batch)
+            use_rand = rng.random(batch) < 0.1
+            toks[:, t + 1] = np.where(use_rand, rand, pick)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import PORTED, RecSysConfig, get_config
+from repro_torch.configs.base import RECSYS_ARCHS, RecSysConfig, get_config
 from repro_torch.core.compression_loop import (
     LadderConfig, run_ladder, serving_params, variant_stats)
 from repro_torch.core.distillation import make_student_cfg
@@ -366,7 +366,7 @@ def run(cfg: Optional[RecSysConfig] = None, *, variants: Optional[Iterable[str]]
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="taobao_ssa", choices=PORTED)
+    ap.add_argument("--arch", default="taobao_ssa", choices=RECSYS_ARCHS)
     ap.add_argument("--variants", default=None,
                     help="comma-separated; default: the arch's own (taobao_ssa: all five, "
                          "fm and din: baseline and quantized, dien and autoint: baseline)")

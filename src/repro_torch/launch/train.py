@@ -1,12 +1,16 @@
-"""Training launcher (port of `repro.launch.train`) for the recsys family:
+"""Training launcher (port of `repro.launch.train`) for the LM and recsys families:
 
-    PYTHONPATH=src python -m repro_torch.launch.train [--arch taobao_ssa|fm|dien|din|autoint] \
+    PYTHONPATH=src python -m repro_torch.launch.train [--arch taobao_ssa|fm|dien|din|autoint|
+        yi_6b|chatglm3_6b|command_r_35b|olmoe_1b_7b|llama4_maverick_400b_a17b] \
         [--steps 200] [--batch 256] [--optimizer adamw|sgd|adam8bit] [--lr 1e-3] \
         [--ckpt-dir DIR] [--ckpt-every 100] [--device cuda]
 
 Config -> model -> optimizer -> fault-tolerant loop (checkpoint/resume),
-as `repro`'s: `reduced_config` cuts every vocabulary to 5,000 and keeps the
-widths, parameters come from seed 0, batches from `make_data` (seed 0),
+as `repro`'s: `reduced_config` cuts a recsys arch's vocabularies to 5,000
+and keeps its widths, and an LM arch to 2 layers, d 128, 4 heads of 32,
+d_ff 256, vocab 512 and at most 8 experts top-2 (in its dtype, bf16 for
+every LM config); parameters come from seed 0, batches from `make_data`
+(seed 0; an LM's are 128 tokens a row from `lm_token_batches`),
 and `ResilientTrainer` checkpoints every `--ckpt-every` steps into
 `--ckpt-dir` (default `repro_torch_ckpt_<arch>` in the temp directory),
 restoring the latest checkpoint there first if it finds one. A checkpoint
@@ -42,9 +46,10 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ARCH_NAMES, RecSysConfig, get_config
+from repro_torch.configs.base import ARCH_NAMES, get_config
 from repro_torch.data import synthetic
 from repro_torch.models.common import init_params
+from repro_torch.models import transformer
 from repro_torch.models.recsys import api as rec_api
 from repro_torch.training import checkpoint
 from repro_torch.training.fault_tolerance import FTConfig, ResilientTrainer
@@ -53,22 +58,31 @@ from repro_torch.training.train_loop import make_train_step
 
 # `repro`'s printed keys, and the step this call resumed from
 PRINTED = ("arch", "steps", "restarts", "wall_s", "steps_per_s", "resumed_from")
-# the LM and GNN families of `repro`'s launcher come with ROADMAP.md Queue 1 item 7
-_OFF_PATH = {"command_r_35b", "chatglm3_6b", "yi_6b", "olmoe_1b_7b",
-             "llama4_maverick_400b_a17b", "nequip"}
+LM_SEQ = 128  # tokens a row of an LM batch, as `repro`'s launcher
 
 
-def reduced_config(cfg: RecSysConfig) -> RecSysConfig:
-    """Shrink a recsys config to CPU-trainable scale: vocabularies cut to 5,000."""
+def reduced_config(cfg):
+    """Shrink any ported arch config to CPU-trainable scale (`repro`'s cuts)."""
+    if cfg.family == "lm":
+        return dataclasses.replace(
+            cfg, n_layers=2, d_model=128, n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 4),
+            d_ff=256, vocab_size=512, head_dim=32,
+            n_experts=min(cfg.n_experts, 8) if cfg.n_experts else 0,
+            top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
+        )
     fields = tuple(dataclasses.replace(f, vocab=min(f.vocab, 5000)) for f in cfg.fields)
     return dataclasses.replace(cfg, fields=fields)
 
 
-def make_data(cfg: RecSysConfig, batch: int, device, seed_base: int = 0):
-    """`step -> iterator of batches` on `device`: `criteo_batches` for FM
-    and AutoInt, `taobao_batches` otherwise, seeded `seed_base + step`, as `repro`'s. A
+def make_data(cfg, batch: int, device, seed_base: int = 0):
+    """`step -> iterator of batches` on `device`: `lm_token_batches` of
+    `LM_SEQ` tokens for an LM, `criteo_batches` for FM and AutoInt,
+    `taobao_batches` otherwise, seeded `seed_base + step`, as `repro`'s. A
     fresh iterator each call, so `make_data(...)(1)` replays the same batches."""
-    if cfg.interaction in ("fm", "self_attn"):
+    if cfg.family == "lm":
+        gen = lambda step: synthetic.lm_token_batches(  # noqa: E731
+            cfg.vocab_size, batch, LM_SEQ, 10**9, seed=seed_base + step)
+    elif cfg.interaction in ("fm", "self_attn"):
         gen = lambda step: synthetic.criteo_batches(cfg, batch, 10**9, seed=seed_base + step)  # noqa: E731
     else:
         gen = lambda step: synthetic.taobao_batches(cfg, batch, 10**9, seed=seed_base + step)  # noqa: E731
@@ -94,20 +108,15 @@ def recording_losses(train_step: Callable, losses: List[torch.Tensor]) -> Callab
     return step
 
 
-def check_arch(arch: str) -> None:
-    """Raise for an arch this launcher does not train."""
-    if arch in _OFF_PATH:
-        raise NotImplementedError(
-            f"arch {arch!r}: the LM and GNN families are not ported; they come with "
-            "ROADMAP.md Queue 1 item 7")
-    get_config(arch)  # unknown or not-yet-ported recsys archs raise here
-
-
-def make_loss(cfg: RecSysConfig):
+def make_loss(cfg):
+    if cfg.family == "lm":
+        return lambda p, b: transformer.loss(p, b, cfg)
     return lambda p, b: rec_api.loss(p, b, cfg)
 
 
-def param_defs_for(cfg: RecSysConfig):
+def param_defs_for(cfg):
+    if cfg.family == "lm":
+        return transformer.param_defs(cfg)
     return rec_api.param_defs(cfg)
 
 
@@ -118,9 +127,8 @@ def run(arch: str, *, steps: int = 200, batch: int = 256, optimizer: str = "adam
     at that step (it raises). Returns `repro`'s record (arch, steps,
     restarts, wall_s, steps_per_s) with "resumed_from", "params",
     "opt_state" and "losses", the loss of each step this call ran."""
-    check_arch(arch)
+    cfg = reduced_config(get_config(arch))  # refuses an unknown arch, and the GNN one
     dev = resolve_device(device)
-    cfg = reduced_config(get_config(arch))
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(param_defs_for(cfg), gen, dev)
     opt = get_optimizer(optimizer, lr)

@@ -65,20 +65,51 @@ def param_count(defs) -> int:
     return int(sum(np.prod(d.shape) for d in _leaves(defs)))
 
 
+def _is_bfloat16(arr: np.ndarray) -> bool:
+    """A bfloat16 array as numpy holds it: `ml_dtypes.bfloat16` (what
+    `np.asarray` of a JAX bf16 array gives) or the 2-byte void type that
+    `np.load` gives for a `.npy` `repro` wrote from one (descr '<V2')."""
+    return arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+                                            and arr.dtype.names is None)
+
+
+def tensor_from_numpy(arr) -> torch.Tensor:
+    """A writable CPU tensor of `arr`'s values and dtype. A bfloat16 array
+    (see `_is_bfloat16`) is read through its 16-bit patterns into a
+    `torch.bfloat16` tensor with the same bits; numpy itself has no
+    bfloat16, and `torch.from_numpy` refuses `ml_dtypes`' type."""
+    arr = np.asarray(arr)
+    if _is_bfloat16(arr):
+        bits = np.array(arr).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))  # a writable copy
+
+
+def numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """`t` on the host as numpy; a bfloat16 tensor as its 16-bit patterns
+    (uint16), which `.view(ml_dtypes.bfloat16)` reads as `repro`'s values."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).reshape(t.shape)
+    return t.numpy()
+
+
 def from_numpy_tree(tree, device) -> Dict[str, Any]:
     """Nested dict of numpy arrays (e.g. `repro` params through
     `jax.tree.map(np.asarray, ...)`) -> the same tree of tensors on
-    `device`. Every key, shape and dtype (int8 included) is kept."""
+    `device`. Every key, shape and dtype (int8 and bfloat16 included) is
+    kept, bfloat16 bit for bit (`tensor_from_numpy`)."""
     if isinstance(tree, dict):
         return {k: from_numpy_tree(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(device)  # a writable copy
+    return tensor_from_numpy(tree).to(device)
 
 
 def to_numpy_tree(tree) -> Dict[str, Any]:
-    """Inverse of `from_numpy_tree`: tensors anywhere -> numpy on the host."""
+    """Inverse of `from_numpy_tree`: tensors anywhere -> numpy on the host,
+    a bfloat16 leaf as its 16-bit patterns (`numpy_from_tensor`)."""
     if isinstance(tree, dict):
         return {k: to_numpy_tree(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    return numpy_from_tensor(tree)
 
 
 def tree_map(fn, tree, *rest):

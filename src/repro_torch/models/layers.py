@@ -1,0 +1,239 @@
+"""Shared neural-net layers for the LM family (port of `repro.models.layers`).
+
+Pure functions over tensors, op for op `repro`'s `jnp` code. Where `repro`
+asks XLA for an f32 product of bf16 operands (`preferred_element_type=
+jnp.float32`) both operands are cast to f32 first: the product of two
+bf16 values is exact in f32, so this is the same sum, never a bf16 matmul.
+Every other product runs in its operands' dtype, as `repro`'s. A Python
+float that scales a tensor is rounded to the tensor's dtype first
+(`_scalar`), as JAX does with a weakly typed scalar.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+_NEG = -1e30  # `repro`'s mask value
+
+
+def _scalar(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`: what `x * value` multiplies by in JAX."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _f32_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`jnp.einsum(spec, a, b, preferred_element_type=jnp.float32)`."""
+    return torch.einsum(spec, a.float(), b.float())
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def layer_norm(x, scale, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)  # jnp.var: ddof 0
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def apply_norm(x, scale, norm_type: str):
+    return rms_norm(x, scale) if norm_type == "rmsnorm" else layer_norm(x, scale)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding (full + fractional / "2d" GLM variant)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, fraction: float, theta: float, device=None):
+    """Inverse frequencies for the rotated sub-dimension."""
+    rot = int(head_dim * fraction)
+    rot -= rot % 2
+    inv = 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot))
+    return inv, rot
+
+
+def apply_rope(x, positions, theta: float, fraction: float = 1.0):
+    """x: [..., seq, heads, head_dim]; positions: [..., seq] (int). The
+    rotation runs in f32 (bf16 times f32 promotes, as in `repro`) and is
+    cast back to x's dtype."""
+    head_dim = x.shape[-1]
+    inv, rot = rope_freqs(head_dim, fraction, theta, x.device)
+    if rot == 0:
+        return x
+    ang = positions[..., :, None].float() * inv  # [..., seq, rot/2]
+    cos = torch.cos(ang)[..., :, None, :]  # broadcast over heads
+    sin = torch.sin(ang)[..., :, None, :]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    # re-interleave
+    out = torch.stack([r1, r2], dim=-1).reshape(x_rot.shape)
+    return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention — dense, KV-chunked (flash-style), decode, sparse decode
+# ---------------------------------------------------------------------------
+
+
+def dense_attention(q, k, v, *, causal: bool, q_offset: int = 0):
+    """Reference full attention. q: [B,S,K,G,hd] (GQA-grouped);
+    k, v: [B,T,K,hd]. Returns [B,S,K,G,hd]."""
+    B, S, K, G, hd = q.shape
+    T = k.shape[1]
+    scale = _scalar(hd**-0.5, q.dtype)
+    scores = _f32_einsum("bskgd,btkd->bkgst", q * scale, k)  # [B,K,G,S,T]
+    if causal:
+        qpos = torch.arange(S, device=q.device) + q_offset
+        kpos = torch.arange(T, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]  # [S,T]
+        scores = torch.where(mask[None, None, None], scores, _NEG)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+
+
+def flash_attention(q, k, v, *, causal: bool, kv_chunk: int = 1024, q_offset: int = 0,
+                    remat_step: bool = False):
+    """KV-chunked streaming-softmax attention (the FlashAttention
+    recurrence), a loop over key/value chunks carrying (running max,
+    normalizer, weighted accumulator), so the live score buffer is
+    [B,K,G,S,kv_chunk] instead of [B,K,G,S,T]. `remat_step` recomputes a
+    chunk's scores in the backward (`torch.utils.checkpoint`, as `repro`'s
+    `jax.checkpoint` of its scan step): memory, not numbers.
+
+    q: [B,S,K,G,hd]; k, v: [B,T,K,hd]. Returns [B,S,K,G,hd]. T above
+    `kv_chunk` must be a multiple of it, as in `repro`.
+    """
+    B, S, K, G, hd = q.shape
+    T = k.shape[1]
+    if T <= kv_chunk:
+        return dense_attention(q, k, v, causal=causal, q_offset=q_offset)
+    if T % kv_chunk:
+        raise ValueError(f"flash_attention: T={T} is not a multiple of kv_chunk={kv_chunk}")
+    qs = q * _scalar(hd**-0.5, q.dtype)
+    qpos = q_offset + torch.arange(S, device=q.device)  # global query positions
+
+    def step(m, l, acc, kc, vc, t0: int):  # noqa: E741
+        s = _f32_einsum("bskgd,btkd->bkgst", qs, kc)  # [B,K,G,S,c]
+        if causal:
+            kpos = t0 + torch.arange(kv_chunk, device=q.device)
+            mask = kpos[None, :] <= qpos[:, None]  # [S,c]
+            s = torch.where(mask[None, None, None], s, _NEG)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_new = l * alpha + torch.sum(p, dim=-1)
+        pv = torch.einsum("bkgst,btkd->bkgsd", p.to(v.dtype), vc)
+        return m_new, l_new, acc * alpha[..., None] + pv.float()
+
+    if remat_step and torch.is_grad_enabled():
+        plain = step
+
+        def step(*args):
+            return checkpoint(plain, *args, use_reentrant=False)
+
+    m = torch.full((B, K, G, S), _NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, K, G, S), dtype=torch.float32, device=q.device)  # noqa: E741
+    acc = torch.zeros((B, K, G, S, hd), dtype=torch.float32, device=q.device)
+    for t0 in range(0, T, kv_chunk):
+        kc, vc = k[:, t0:t0 + kv_chunk], v[:, t0:t0 + kv_chunk]
+        m, l, acc = step(m, l, acc, kc, vc, t0)  # noqa: E741
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return torch.movedim(out, 3, 1).to(q.dtype)  # [B,S,K,G,hd]
+
+
+def decode_attention(q, k_cache, v_cache, pos):
+    """Single-token decode. q: [B,1,K,G,hd]; caches: [B,T,K,hd]; pos: [B]
+    index of the current token (attends to <= pos)."""
+    hd = q.shape[-1]
+    T = k_cache.shape[1]
+    scale = _scalar(hd**-0.5, q.dtype)
+    scores = torch.einsum("bkgd,btkd->bkgt", q[:, 0] * scale, k_cache).float()
+    valid = torch.arange(T, device=q.device)[None] <= pos[:, None]  # [B,T]
+    scores = torch.where(valid[:, None, None], scores, _NEG)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", probs.to(v_cache.dtype), v_cache)
+    return out[:, None]  # [B,1,K,G,hd]
+
+
+def _linspace01(n: int, device) -> torch.Tensor:
+    """`jnp.linspace(0.0, 1.0, n)` in f32, bit for bit, as XLA compiles it
+    on the CPU: i times the f32 reciprocal of n - 1 (its division by a
+    constant becomes that product), the last point 1. `torch.linspace`
+    rounds some points the other way, and the global samples are floors."""
+    if n == 1:
+        return torch.zeros(1, dtype=torch.float32, device=device)
+    frac = torch.arange(n, dtype=torch.float32, device=device) * float(
+        torch.tensor(1.0 / (n - 1), dtype=torch.float32))
+    frac[-1] = 1.0
+    return frac
+
+
+def _rows(cache, idx):
+    """cache [B,T,...] at per-row positions idx [B,n] -> [B,n,...]."""
+    return cache[torch.arange(cache.shape[0], device=cache.device)[:, None], idx]
+
+
+def sparse_decode_attention(q, k_cache, v_cache, pos, *, window: int, n_global: int):
+    """The paper's C2 hybrid sparse attention at decode time: full attention
+    over the trailing `window` positions + `n_global` strided global samples
+    (fixed sparse pattern, Formula 4 -> O(w + n_global) per token).
+
+    q: [B,1,K,G,hd]; caches: [B,T,K,hd]; pos: [B].
+    """
+    B, _, Kh, G, hd = q.shape
+    T = k_cache.shape[1]
+    window = min(window, T)
+    n_global = min(n_global, T)
+    scale = _scalar(hd**-0.5, q.dtype)
+
+    # ---- trailing window from pos-window+1, clamped into the cache as
+    # `jax.lax.dynamic_slice_in_dim` clamps its start ----
+    start = torch.clamp(pos - window + 1, 0, T - window)  # [B]
+    win_pos = start[:, None] + torch.arange(window, device=q.device)[None]  # [B,window]
+    k_win, v_win = _rows(k_cache, win_pos), _rows(v_cache, win_pos)
+
+    # ---- strided global samples over [0, pos]: n_global evenly spaced ----
+    frac = _linspace01(n_global, q.device)
+    gpos = torch.floor(frac[None] * torch.clamp(pos[:, None], min=1).float()).to(torch.int64)
+    k_glb, v_glb = _rows(k_cache, gpos), _rows(v_cache, gpos)  # [B,n_global,K,hd]
+
+    k_sp = torch.cat([k_win, k_glb], dim=1)  # [B,W+Gb,K,hd]
+    v_sp = torch.cat([v_win, v_glb], dim=1)
+    sel_pos = torch.cat([win_pos, gpos], dim=1)  # [B,W+Gb]
+
+    scores = torch.einsum("bkgd,btkd->bkgt", q[:, 0] * scale, k_sp).float()
+    valid = sel_pos <= pos[:, None]
+    # avoid double-counting: global positions inside the window are masked
+    in_window = sel_pos >= start[:, None]
+    dup = torch.cat([torch.zeros((B, window), dtype=torch.bool, device=q.device),
+                     in_window[:, window:]], dim=1)
+    scores = torch.where((valid & ~dup)[:, None, None], scores, _NEG)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", probs.to(v_sp.dtype), v_sp)
+    return out[:, None]
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    g = torch.matmul(x, w_gate)
+    u = torch.matmul(x, w_up)
+    h = F.silu(g.float()).to(x.dtype) * u
+    return torch.matmul(h, w_down)

@@ -28,6 +28,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.common import numpy_from_tensor, tensor_from_numpy
+
 _CHUNK_BYTES = 256 * 2**20
 
 
@@ -223,10 +225,28 @@ def _leaf_chunks(arr: np.ndarray):
     return [arr[i : i + rows_per] for i in range(0, arr.shape[0], rows_per)]
 
 
-def _to_numpy(leaf) -> np.ndarray:
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
+    """A leaf as numpy, and the dtype name its manifest entry records: a
+    bfloat16 tensor as its 16-bit patterns, recorded "bfloat16" as `repro`
+    records an `ml_dtypes.bfloat16` array."""
     if torch.is_tensor(leaf):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        arr = numpy_from_tensor(leaf)
+        return arr, "bfloat16" if leaf.dtype == torch.bfloat16 else str(arr.dtype)
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _save_npy(path: Path, arr: np.ndarray, dtype: str) -> None:
+    """`np.save(path, arr)`; a bfloat16 chunk (`arr` its uint16 patterns)
+    under the header `np.save` writes for an `ml_dtypes.bfloat16` array,
+    descr '<V2', so the file is byte for byte `repro`'s."""
+    if dtype != "bfloat16":
+        np.save(path, arr)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False, "shape": arr.shape})
+        f.write(arr.tobytes(order="C"))
 
 
 def save(ckpt_dir, step: int, tree: Any, extra: Optional[Dict] = None) -> Path:
@@ -242,11 +262,11 @@ def save(ckpt_dir, step: int, tree: Any, extra: Optional[Dict] = None) -> Path:
     leaves, structure = flatten(tree)
     meta = []
     for i, leaf in enumerate(leaves):
-        arr = _to_numpy(leaf)
+        arr, dtype = _to_numpy(leaf)
         chunks = _leaf_chunks(arr)
         for c, chunk in enumerate(chunks):
-            np.save(tmp / f"leaf_{i:05d}_{c:04d}.npy", chunk)
-        meta.append({"shape": list(arr.shape), "dtype": str(arr.dtype), "n_chunks": len(chunks)})
+            _save_npy(tmp / f"leaf_{i:05d}_{c:04d}.npy", chunk, dtype)
+        meta.append({"shape": list(arr.shape), "dtype": dtype, "n_chunks": len(chunks)})
 
     manifest = {
         "step": step,
@@ -276,8 +296,11 @@ def latest_step(ckpt_dir) -> Optional[int]:
 
 
 def _shape_dtype(leaf) -> Tuple[List[int], str]:
-    """A leaf's shape and its numpy dtype's name, as a manifest records them."""
+    """A leaf's shape and its dtype's name, as a manifest records them
+    (numpy's name; "bfloat16" for a bfloat16 tensor)."""
     if torch.is_tensor(leaf):
+        if leaf.dtype == torch.bfloat16:
+            return list(leaf.shape), "bfloat16"
         return list(leaf.shape), str(torch.empty(0, dtype=leaf.dtype).numpy().dtype)
     arr = np.asarray(leaf)
     return list(arr.shape), str(arr.dtype)
@@ -285,7 +308,8 @@ def _shape_dtype(leaf) -> Tuple[List[int], str]:
 
 def restore(ckpt_dir, step: int, like: Any, device=None) -> Any:
     """Step `step` in `like`'s structure, each leaf a tensor of the dtype
-    it was saved in, on `device` if given, else on the device of its `like`
+    it was saved in (a "bfloat16" leaf, which numpy loads as '<V2' bytes, a
+    `torch.bfloat16` tensor of the same bits), on `device` if given, else on the device of its `like`
     leaf (the CPU where that leaf is not a tensor). Refuses a checkpoint
     whose leaf count is not `like`'s, and one with a leaf whose shape or
     dtype is not its `like` leaf's, naming the leaf's path (`repro` checks
@@ -308,5 +332,5 @@ def restore(ckpt_dir, step: int, like: Any, device=None) -> Any:
         chunks = [np.load(path / f"leaf_{i:05d}_{c:04d}.npy") for c in range(m["n_chunks"])]
         arr = chunks[0] if len(chunks) == 1 else np.concatenate(chunks, axis=0)
         dev = device if device is not None else (ref.device if torch.is_tensor(ref) else "cpu")
-        out.append(torch.from_numpy(np.array(arr)).to(dev))  # a writable copy
+        out.append(tensor_from_numpy(arr).to(dev))  # a writable copy; '<V2' as bfloat16
     return unflatten(like, out)

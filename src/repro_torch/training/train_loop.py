@@ -58,7 +58,9 @@ def make_train_step(
                 gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                                        for g in grads))
                 scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-                grads = [(g * scale).to(g.dtype) for g in grads]
+                # in f32, then back: a bf16 gradient times the f32 scale
+                # promotes in `repro`
+                grads = [(g.float() * scale).to(g.dtype) for g in grads]
                 metrics = {**metrics, "grad_norm": gnorm}
             trainable = tree_from_leaves(zip(paths, leaves))
             updates, opt_state = optimizer.update(tree_from_leaves(zip(paths, grads)), opt_state,

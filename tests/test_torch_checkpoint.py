@@ -10,6 +10,11 @@
 - A deviation from `repro`: `restore` refuses a leaf whose saved shape or
   dtype is not its `like` leaf's, naming the leaf's path; `repro` checks
   only the leaf count and hands back the saved leaf (shown below).
+- bfloat16 (every LM config's dtype) crosses bit for bit: a `repro` bf16
+  tree through `from_numpy_tree` / `to_numpy_tree`, a `repro` bf16
+  checkpoint restored by the port, and the port's bf16 checkpoint written
+  byte for byte as `repro` writes it. `repro`'s `restore` refuses bf16
+  leaves, its own checkpoints' too (shown below).
 """
 import pytest
 
@@ -22,7 +27,7 @@ import numpy as np  # noqa: E402
 
 from repro.training import checkpoint as jax_checkpoint  # noqa: E402
 from repro.training import optimizer as jax_opt  # noqa: E402
-from repro_torch.models.common import from_numpy_tree, tree_leaves  # noqa: E402
+from repro_torch.models.common import from_numpy_tree, to_numpy_tree, tree_leaves  # noqa: E402
 from repro_torch.training import checkpoint, optimizer  # noqa: E402
 from torch_parity import jax_params, small_configs, to_numpy, to_torch_params  # noqa: E402
 
@@ -238,3 +243,73 @@ def test_leaf_paths_follow_the_flatten_order():
             torch.ones(1))
     assert checkpoint.leaf_paths(tree) == ["0/a/y", "0/a/z/0", "0/b", "1"]
     assert len(checkpoint.leaf_paths(tree)) == len(checkpoint.flatten(tree)[0])
+
+
+@pytest.fixture(scope="module")
+def bf16_tree():
+    """`repro`'s reduced yi_6b parameters (bf16) and AdamW state after one
+    update (f32 moments, the int32 count), and a 0-d bf16 leaf."""
+    from conftest import reduced_lm
+    from repro.models import transformer as jtf
+    from repro.models.common import init_params
+
+    cfg = reduced_lm("yi_6b")
+    params = init_params(jtf.param_defs(cfg), jax.random.key(0))
+    grads = jax.tree.map(lambda p: jax.random.normal(jax.random.key(1), p.shape).astype(p.dtype),
+                         params)
+    opt = jax_opt.get_optimizer("adamw", 1e-3)
+    _, state = opt.update(grads, opt.init(params), params)
+    return {"params": params, "opt": state, "scalar": jnp.asarray(-2.75, jnp.bfloat16)}
+
+
+def test_bf16_bits_cross_through_numpy_trees(bf16_tree):
+    tree = to_numpy(bf16_tree)
+    port = from_numpy_tree(tree, "cpu")
+    assert port["params"]["embed"].dtype == torch.bfloat16 and port["scalar"].shape == ()
+    assert port["opt"]["m"]["embed"].dtype == torch.float32
+    back = to_numpy_tree(port)
+    for (path, a), (_, b) in zip(tree_leaves(tree), tree_leaves(back)):
+        bits = a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+        assert b.dtype == bits.dtype and b.shape == bits.shape, path
+        np.testing.assert_array_equal(b, bits, err_msg=str(path))
+
+
+def test_a_repro_bf16_checkpoint_restores_in_the_port(bf16_tree, tmp_path):
+    jax_checkpoint.save(tmp_path, 4, bf16_tree)
+    ref = from_numpy_tree(to_numpy(bf16_tree), "cpu")
+    like = checkpoint.unflatten(ref, [torch.zeros_like(x) for x in checkpoint.flatten(ref)[0]])
+    restored = checkpoint.restore(tmp_path, 4, like)
+    for (path, a), (_, b) in zip(tree_leaves(ref), tree_leaves(restored)):
+        assert a.dtype == b.dtype and torch.equal(a.view(-1).view(torch.uint8),
+                                                  b.view(-1).view(torch.uint8)), path
+
+
+def test_a_port_bf16_checkpoint_is_repros_bytes_and_reads_back_as_its_values(bf16_tree, tmp_path):
+    """The port writes each leaf's `.npy` as `repro` does (a bf16 leaf under
+    descr '<V2') and the manifest's leaves as `repro`'s ("bfloat16");
+    only the structure string differs (see the module's docstring).
+    `repro`'s own `restore` refuses a bf16 leaf of any checkpoint, its own
+    included (`jnp.asarray` of the '<V2' array numpy loads), so `repro`
+    reads the port's bf16 leaves as it would its own: `np.load` and a view
+    as `ml_dtypes.bfloat16`."""
+    import ml_dtypes
+
+    port = from_numpy_tree(to_numpy(bf16_tree), "cpu")
+    jax_checkpoint.save(tmp_path / "repro", 4, bf16_tree)
+    checkpoint.save(tmp_path / "port", 4, port)
+    a, b = tmp_path / "repro" / "step_00000004", tmp_path / "port" / "step_00000004"
+    leaves = sorted(p.name for p in a.glob("leaf_*.npy"))
+    assert leaves == sorted(p.name for p in b.glob("leaf_*.npy"))
+    for name in leaves:
+        assert (a / name).read_bytes() == (b / name).read_bytes(), name
+    ma, mb = (msgpack.unpackb((d / "manifest.msgpack").read_bytes()) for d in (a, b))
+    assert {**ma, "treedef": None} == {**mb, "treedef": None}
+    assert "bfloat16" in {m["dtype"] for m in mb["leaves"]}
+    ref = jax.tree.leaves(to_numpy(bf16_tree))
+    for i, r in enumerate(ref):
+        got = np.load(b / f"leaf_{i:05d}_0000.npy")
+        if r.dtype.name == "bfloat16":
+            got = got.view(ml_dtypes.bfloat16)
+        np.testing.assert_array_equal(got, r, err_msg=str(i))
+    with pytest.raises(TypeError, match="V2"):
+        jax_checkpoint.restore(tmp_path / "repro", 4, bf16_tree)

@@ -1106,3 +1106,55 @@ def test_int8_matmul_refuses_a_forced_plan_of_another_shape_on_card(cuda_device)
         int8_kernel.int8_matmul(a_q, b_q, a_s, b_s, int8_kernel.launch_plan(640, 64, 64))
     with pytest.raises(ValueError):
         fm_kernel.fm_interaction(_fm_e(8, 39, 10, cuda_device), fm_kernel.chunk_plan(9, 39, 10, 4))
+
+
+# The LM family (no kernel on its path): the training launcher's reduced
+# config of each LM arch in f32, TF32 off, on the card against the CPU,
+# within 1e-5 of the largest |logit| (f32 sums in another order); the loss
+# within 1e-5 of itself. No kernel launches.
+LM_ARCHS = ["yi_6b", "chatglm3_6b", "command_r_35b", "olmoe_1b_7b", "llama4_maverick_400b_a17b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_reduced_lm_forward_and_decode_on_card_match_the_cpu(cuda_device, arch):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer
+    from repro_torch.models.common import init_params, tree_map
+
+    cfg = dataclasses.replace(train.reduced_config(get_config(arch)), dtype="float32")
+    host = init_params(transformer.param_defs(cfg), torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.to(cuda_device), host)
+    batch = next(train.make_data(cfg, 2, "cpu")(0))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    serve.reset_launch_counts()
+    try:
+        out = {}
+        for dev, params in (("cpu", host), ("cuda", card)):
+            b = {k: v.to(dev) for k, v in batch.items()}
+            with torch.no_grad():
+                loss, _ = transformer.loss(params, b, cfg)
+                logits, (k, v) = transformer.prefill(params, b["tokens"], cfg)
+                T = b["tokens"].shape[1]
+                shape = transformer.cache_shape(cfg, 2, T + 4)
+                kc = torch.zeros(shape, device=dev)
+                vc = torch.zeros(shape, device=dev)
+                kc[:, :, :T], vc[:, :, :T] = k, v
+                steps, tok = [], torch.argmax(logits, -1)
+                for i in range(4):
+                    pos = torch.full((2,), T + i, device=dev)
+                    lg, (kc, vc) = transformer.decode(params, (kc, vc), tok, pos, cfg)
+                    steps.append(lg)
+                    tok = torch.argmax(lg, -1)
+            out[dev] = (loss.cpu(), logits.cpu(), [s.cpu() for s in steps])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert all(n == 0 for n in serve.launch_counts().values())
+    (hl, hg, hs), (cl, cg, cs) = out["cpu"], out["cuda"]
+    assert abs(float(hl) - float(cl)) <= 1e-5 * abs(float(hl))
+    for a, b in zip([hg] + hs, [cg] + cs):
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())

@@ -82,3 +82,34 @@ def test_training_data_and_reduced_config_match_repro_launch_train(arch):
             out = next(tdata_fn(step))
             _equal({k: np.asarray(v) for k, v in ref.items()},
                    {k: v.numpy() for k, v in out.items()})
+
+
+@pytest.mark.parametrize("vocab,batch,seq,seed", [(512, 4, 128, 0), (64000, 3, 17, 5), (7, 2, 1, 1)])
+def test_lm_token_batches_identical(vocab, batch, seq, seed):
+    ref = list(jdata.lm_token_batches(vocab, batch, seq, 3, seed=seed))
+    out = list(tdata.lm_token_batches(vocab, batch, seq, 3, seed=seed))
+    assert len(ref) == len(out) == 3
+    for a, b in zip(ref, out):
+        _equal(a, b)
+    assert out[0]["tokens"].shape == (batch, seq) and out[0]["tokens"].dtype == np.int32
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "olmoe_1b_7b", "llama4_maverick_400b_a17b"])
+def test_lm_training_data_and_reduced_config_match_repro_launch_train(arch):
+    """The LM branch of `launch/train`: `reduced_config`'s config equals
+    `repro`'s field for field, and `make_data` yields `repro`'s batches of
+    128 tokens (as tensors)."""
+    import dataclasses
+
+    from repro.configs.base import get_config as jget
+    from repro.launch import train as jtrain
+    from repro_torch.configs.base import get_config as tget
+    from repro_torch.launch import train as ttrain
+
+    jcfg, tcfg = jtrain.reduced_config(jget(arch)), ttrain.reduced_config(tget(arch))
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    for step in (0, 2):
+        ref = next(jtrain.make_data(jcfg, 4, seed_base=1)(step))
+        out = next(ttrain.make_data(tcfg, 4, "cpu", 1)(step))
+        _equal({k: np.asarray(v) for k, v in ref.items()}, {k: v.numpy() for k, v in out.items()})
+        assert out["tokens"].shape == (4, ttrain.LM_SEQ)

@@ -51,6 +51,10 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
     assert {"repro_torch.models.recsys.din", "repro_torch.models.recsys.autoint",
             "repro_torch.configs.din", "repro_torch.configs.autoint",
             "repro_torch.launch.quickstart", "repro_torch.data.pipeline"} <= walked
+    assert {"repro_torch.models.layers", "repro_torch.models.moe",
+            "repro_torch.models.transformer", "repro_torch.distributed.expert_parallel",
+            "repro_torch.configs.yi_6b", "repro_torch.configs.olmoe_1b_7b",
+            "repro_torch.configs.shapes"} <= walked
 
 
 _FORBIDDEN = re.compile(

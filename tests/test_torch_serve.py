@@ -200,13 +200,13 @@ def test_cli_without_cuda_exits_nonzero():
 
 
 def test_unported_arch_and_interaction_raise():
-    """Every recsys arch and interaction of `repro` is ported; the LM and
-    GNN archs and unknown names are refused, as `repro`'s `api` refuses an
-    unknown interaction."""
+    """Every recsys arch and interaction of `repro` is ported, and every LM
+    arch; the GNN arch and unknown names are refused, as `repro`'s `api`
+    refuses an unknown interaction."""
     from repro_torch.models.recsys import api, autoint, din
 
-    with pytest.raises(NotImplementedError, match="LM / GNN"):
-        get_config("yi_6b")
+    with pytest.raises(NotImplementedError, match="GNN slice"):
+        get_config("nequip")
     with pytest.raises(KeyError):
         get_config("no_such_arch")
     with pytest.raises(KeyError):

@@ -2,9 +2,15 @@
 kernels' autograd Functions, against `repro`, on the CPU.
 
 - `main` trains each ported arch (taobao_ssa, fm, dien, din, autoint) at
-  the launcher's config (vocabularies cut to 5,000, widths as configured)
-  and prints the keys `repro`'s launcher prints, and `resumed_from`; LM
-  and GNN archs are refused.
+  the launcher's config (vocabularies cut to 5,000, widths as configured),
+  and each LM arch (yi_6b, chatglm3_6b, command_r_35b, olmoe_1b_7b,
+  llama4_maverick_400b_a17b) at `repro`'s (2 layers, d 128, vocab 512, at
+  most 8 experts top-2, bf16), and prints the keys `repro`'s launcher
+  prints, and `resumed_from`; the GNN arch (nequip) is refused, naming its
+  slice.
+- An LM run's losses equal those of `repro`'s `make_train_step` loop from
+  the port's initial parameters carried into JAX (bf16 bits), on the same
+  batches: within `LM_LOSS_REL` of each loss (see there).
 - A deviation from `repro`: a rerun over a finished checkpoint reports the
   restored step and a rate of the steps it trained (none); `repro`'s
   reports one step more and divides the restored steps by its seconds.
@@ -47,6 +53,13 @@ from torch_parity import jax_params, reduced_pair  # noqa: E402
 
 KEYS = {"arch", "steps", "restarts", "wall_s", "steps_per_s"}
 GRAD_ATOL = 1e-5
+# bf16 LM training against `repro`'s, relative to each loss: measured up to
+# 5.7e-5 for the dense archs and 5.6e-4 for the MoE ones on these three
+# steps (XLA rounds its fused bf16 intermediates elsewhere,
+# `tests/test_torch_transformer.py`, and AdamW's first steps move every
+# weight by about lr whatever the gradient's size)
+LM_LOSS_REL = 2e-3
+LM_ARCHS = ["yi_6b", "chatglm3_6b", "command_r_35b", "olmoe_1b_7b", "llama4_maverick_400b_a17b"]
 
 
 def _json_line(text):
@@ -60,20 +73,49 @@ def test_repros_launcher_prints_these_keys(tmp_path, monkeypatch, capsys):
     assert set(_json_line(capsys.readouterr().out)) == KEYS
 
 
-@pytest.mark.parametrize("arch", ["taobao_ssa", "fm", "dien", "din", "autoint"])
+@pytest.mark.parametrize("arch", ["taobao_ssa", "fm", "dien", "din", "autoint"] + LM_ARCHS)
 def test_main_trains_each_arch_on_the_cpu_and_prints_repros_keys(arch, tmp_path, capsys):
-    train.main(["--arch", arch, "--device", "cpu", "--steps", "3", "--batch", "8",
+    batch = "4" if arch in LM_ARCHS else "8"
+    train.main(["--arch", arch, "--device", "cpu", "--steps", "3", "--batch", batch,
                 "--ckpt-every", "2", "--ckpt-dir", str(tmp_path)])
     rec = _json_line(capsys.readouterr().out)
     assert set(rec) == KEYS | {"resumed_from"} and rec["arch"] == arch and rec["steps"] == 3
     assert rec["restarts"] == rec["resumed_from"] == 0 and checkpoint.latest_step(tmp_path) == 2
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "llama4_maverick_400b_a17b", "nequip"])
+@pytest.mark.parametrize("arch", ["nequip"])
 def test_lm_and_gnn_archs_are_refused(arch, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    """Only the GNN arch is left: its refusal names its slice."""
+    with pytest.raises(NotImplementedError, match="GNN slice"):
         train.main(["--arch", arch, "--device", "cpu", "--steps", "1",
                     "--ckpt-dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_losses_match_repros_train_step_loop(arch, tmp_path, lm_rules):
+    """Three AdamW steps at batch 4 × 128 tokens through the launcher, and
+    `repro`'s jitted `make_train_step` from the same initial parameters
+    (the port's, seed 0, carried into JAX with their bf16 bits) on
+    `repro`'s `make_data` batches."""
+    import ml_dtypes
+
+    from repro.training.optimizer import get_optimizer as jax_get_optimizer
+    from repro.training.train_loop import make_train_step as jax_make_train_step
+    from repro_torch.models.common import init_params, to_numpy_tree
+
+    rec = train.run(arch, steps=3, batch=4, ckpt_dir=str(tmp_path), device="cpu")
+    cfg = train.reduced_config(get_config(arch))
+    start = init_params(train.param_defs_for(cfg), torch.Generator().manual_seed(0), "cpu")
+    jparams = jax.tree.map(lambda a: jnp.asarray(a.view(ml_dtypes.bfloat16)),
+                           to_numpy_tree(start))
+    jcfg = jax_train.reduced_config(jax_train.get_config(arch))
+    opt = jax_get_optimizer("adamw", 1e-3)
+    step = jax.jit(jax_make_train_step(jax_train.make_loss(jcfg, lm_rules), opt))
+    state, ref = opt.init(jparams), []
+    for _, batch in zip(range(3), jax_train.make_data(jcfg, 4)(0)):
+        jparams, state, metrics = step(jparams, state, batch)
+        ref.append(float(metrics["loss"]))
+    assert rec["losses"] == pytest.approx(ref, rel=LM_LOSS_REL)
 
 
 def test_unported_recsys_archs_and_cuda_without_a_card_are_refused(tmp_path):
@@ -86,7 +128,7 @@ def test_unported_recsys_archs_and_cuda_without_a_card_are_refused(tmp_path):
             train.run("fm", steps=1, ckpt_dir=str(tmp_path))  # the default device
 
 
-@pytest.mark.parametrize("arch", ["taobao_ssa", "fm", "dien", "din", "autoint"])
+@pytest.mark.parametrize("arch", ["taobao_ssa", "fm", "dien", "din", "autoint"] + LM_ARCHS)
 def test_a_crashed_and_resumed_run_ends_in_the_bits_of_an_uninterrupted_one(arch, tmp_path):
     kw = dict(steps=6, batch=8, ckpt_every=2, device="cpu")
     with pytest.raises(RuntimeError, match="injected failure at step 5"):
