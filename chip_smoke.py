@@ -130,12 +130,37 @@ Then two more paths, each with its launches counted from 0:
    Then each at full width with 2 layers in f32 on the card against the
    CPU (2 × 128 tokens: prefill logits, 4 decode steps, the loss) within
    `LM_CARD_CPU_TOL`.
+17. gnn_full_size — NequIP as configured (5 layers, 32 channels, l_max
+   2, f32; weights from seed 0) at the dry run's GNN shapes one card
+   holds (`gnn_batch`): molecule (128 molecules, 3,840 atoms, 8,192
+   edges, `energy_loss`), full_graph_sm (Cora-sized: 2,708 nodes, 10,556
+   edges, 1,433 features, 7 classes) and minibatch_lg (1,024 seeds of a
+   Reddit-sized graph sampled at fanout (15, 10): 169,984 nodes, 168,960
+   edges, 602 features, 41 classes, the seeds' labels). Each: the forward
+   on the card against the CPU's within `GNN_CARD_CPU_TOL` of the largest
+   output (molecule, full_graph_sm), a rotation of the positions within
+   `GNN_ROT_TOL`, 8 AdamW steps on the batch whose loss must fall, run
+   twice from the same start to the same bits, launches exact (one
+   `embedding_bag` a step for molecule's species lookup, none for the
+   feature shapes), then a step's and the loss's median ms beside their
+   bounds (`gnn_flops_bytes`: f32 at the spec sheet's CUDA-core rate, TF32
+   being off, and HBM rate), `max_memory_allocated`, a profiled step (the
+   device's busy ms and idle share, its six costliest kernels), and the
+   forward's 75
+   node-feature gathers with their backward two ways (`nequip.gather`,
+   the port's, against `embedding_bag_op` at one id a bag; the same
+   gradient bits). ogb_products is reckoned, not run: one layer's f32
+   messages (39.6 GB) and `_p222`'s matrices (71.3 GB each) exceed a card.
 Phase 13 also trains `yi_6b` and `olmoe_1b_7b` through the launcher
 (its LM config: 2 layers, d 128, vocab 512, bf16; crash, resume and
 uninterrupted runs the same bits; a step on the card against the CPU's in
 f32 under phase 5's rule), and each at full width cut to 2 layers (0.87 B
 and 1.05 B parameters, bf16, AdamW) for 8 steps on one batch of 4 × 128
-tokens, timed: the loss must fall.
+tokens, timed: the loss must fall; and `nequip` as configured, on the
+launcher's `random_graph`s of 512 nodes (crash, resume and uninterrupted
+runs the same bits; one `embedding_bag` launch a step, the species
+lookup; SGD and AdamW steps on the card against the CPU's under phase 5's
+rule).
 
 Then the `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and the exit code is
@@ -156,6 +181,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs.base import RECSYS_ARCHS, get_config, with_attn_window  # noqa: E402
+from repro_torch.configs.shapes import GNN_SHAPES  # noqa: E402
 from repro_torch.core import pruning  # noqa: E402
 from repro_torch.core.compression_loop import run_ladder, serving_params, variant_stats  # noqa: E402
 from repro_torch.core.quantization import quantize_weight  # noqa: E402
@@ -172,6 +198,8 @@ from repro_torch.launch.train import make_data  # noqa: E402
 from repro_torch.training import checkpoint  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.gnn import nequip, sampler  # noqa: E402
+from repro_torch.kernels.embedding_bag import ops as eb_ops  # noqa: E402
 from repro_torch.models.common import init_params, param_count, tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.recsys import api  # noqa: E402
 from repro_torch.training.optimizer import adamw, sgd  # noqa: E402
@@ -248,7 +276,11 @@ REPEAT_PROFILE = "spike"
 COUNTS = ("arrived", "completed", "in_queue")  # of an engine run, beside `serve.serving_record`
 # the training launcher's phase: steps, checkpoint interval, injected crash
 # (after the checkpoint of step 20), batch, and the steps of each timing
-TRAIN_ARCHS = ("taobao_ssa", "fm", "dien", "din", "autoint", "yi_6b", "olmoe_1b_7b")
+TRAIN_ARCHS = ("taobao_ssa", "fm", "dien", "din", "autoint", "yi_6b", "olmoe_1b_7b", "nequip")
+# kernel launches of a train step's forward where it is not the serve
+# call's: NequIP's species lookup (its gathers and scatters are PyTorch's
+# index_select and fixed-order segment_reduce)
+STEP_LAUNCHES = {"nequip": {**_NONE, "embedding_bag": 1}}
 FT_STEPS, FT_CKPT_EVERY, FT_CRASH_AT, FT_BATCH, STEP_TIMING_REPS = 30, 10, 25, 256, 5
 ADAM8BIT_STEPS = 10
 E2E_STEPS = 60  # compress_and_serve's training steps (the example's 300, cut)
@@ -272,8 +304,24 @@ LM_CPU_LAYERS, LM_CPU_TOKENS, LM_CPU_DECODE, LM_CARD_CPU_TOL = 2, (2, 128), 4, 1
 # weight of width 4,096 (std 0.016) by a fifth in AdamW's first step: yi's
 # loss went 11.87, 3.37, 7.89, 9.39, ... 9.82 on the card; 1e-4 overfits
 LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_STEPS, LM_TRAIN_LR = 2, 4, 8, 1e-4
-# the spec sheet's dense bf16 rate and HBM rate of an H100 SXM at 700 W
-H100_BF16_FLOPS, H100_HBM_BYTES_PER_S = 989e12, 3.35e12
+# phase 17: NequIP as configured at the dry run's GNN shapes one card
+# holds, with `repro`'s cell's class counts (`launch/cells._GNN_CLASSES`);
+# 8 AdamW steps on one batch at the launcher's lr. ogb_products is reckoned,
+# not run (`_ogb_products_reckoning`)
+GNN_RUN_SHAPES = ("molecule", "full_graph_sm", "minibatch_lg")
+GNN_CLASSES = {"molecule": 1, "full_graph_sm": 7, "minibatch_lg": 41, "ogb_products": 47}
+GNN_STEPS, GNN_LR = 8, 1e-3
+# card against CPU, f32 with TF32 off, relative to the largest |output|:
+# f32 sums in another order through 5 layers
+GNN_CARD_CPU_TOL = 1e-5
+# a rotation of the positions against none, relative to the largest
+# |output|: invariant in exact arithmetic; set before the first card run
+# from CPU runs as configured, 3.3e-7 (molecule) and 1.9e-7 (full_graph_sm),
+# with room for the card's other rounding
+GNN_ROT_TOL = 1e-4
+# the spec sheet's dense bf16 rate, f32 rate outside the tensor cores and
+# HBM rate of an H100 SXM at 700 W
+H100_BF16_FLOPS, H100_F32_FLOPS, H100_HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
 KERNEL_SYMBOL = {"embedding_bag": "embedding_bag_kernel",
                  "fm_interaction": "fm_interaction_kernel", "augru": "augru_kernel",
                  "block_pruned_matmul": "block_pruned_matmul_",  # tall, small and rows
@@ -1235,7 +1283,7 @@ def phase_train(root: Path) -> dict:
         resume_from = FT_CRASH_AT // FT_CKPT_EVERY * FT_CKPT_EVERY
         steps_run = FT_CRASH_AT + (FT_STEPS - resume_from) + FT_STEPS
         # a train step's forward: the serve call's; an LM's launches none
-        per_step = EXPECT_LAUNCHES.get((arch, "baseline"), _NONE)
+        per_step = STEP_LAUNCHES.get(arch) or EXPECT_LAUNCHES.get((arch, "baseline"), _NONE)
         expect = {k: steps_run * per_step[k] for k in _NONE}
         differ = _same_bits((resumed["params"], resumed["opt_state"]),
                             (whole["params"], whole["opt_state"]))
@@ -1652,6 +1700,253 @@ def _lm_dense_checks(params, cfg, tokens, cache, token) -> dict:
             "c2_decode_tokens_per_s": tokens.shape[0] / c2_ms * 1e3,
             "c2_finite": bool(all(torch.isfinite(x).all() for x in steps))}
 
+def gnn_batch(name: str) -> dict:
+    """numpy inputs of a dry-run GNN shape (`configs/shapes.GNN_SHAPES`),
+    seed 0. molecule: `molecule_batch` of 128 molecules of 30 atoms and 64
+    edges. full_graph_sm: a Cora-sized `random_graph` (2,708 nodes, 1,433
+    features, 7 classes) at degree 4, cut to Cora's 10,556 edges.
+    minibatch_lg: `sample_subgraph` of 1,024 distinct seeds at fanout
+    (15, 10) in a host CSR of a `random_graph` with Reddit's 232,965 nodes,
+    602 features and 41 classes at the launcher's degree 8 (Reddit's is
+    492; the sampler draws with replacement, so the card's shapes do not
+    depend on it); its nodes' positions, features and labels gathered on
+    the host, the seeds' labels alone counted (`label_mask`)."""
+    s = GNN_SHAPES[name]
+    if s.kind == "batched_small":
+        return synthetic.molecule_batch(s.graph_batch, s.n_nodes, s.n_edges, seed=0)
+    if s.kind == "full_batch":
+        g = synthetic.random_graph(s.n_nodes, -(-s.n_edges // s.n_nodes), d_feat=s.d_feat,
+                                   n_classes=GNN_CLASSES[name], seed=0)
+        return {**g, "edge_src": g["edge_src"][:s.n_edges], "edge_dst": g["edge_dst"][:s.n_edges]}
+    host = synthetic.random_graph(s.n_nodes, train.GNN_DEGREE, d_feat=s.d_feat,
+                                  n_classes=GNN_CLASSES[name], seed=0)
+    csr = sampler.CSRGraph.from_edges(host["edge_src"], host["edge_dst"], s.n_nodes)
+    rng = np.random.default_rng(0)
+    sub = sampler.sample_subgraph(csr, rng.choice(s.n_nodes, s.batch_nodes, replace=False),
+                                  s.fanout, rng)
+    ids = sub["node_ids"]
+    return {"positions": host["positions"][ids], "features": host["features"][ids],
+            "labels": host["labels"][ids], "edge_src": sub["edge_src"],
+            "edge_dst": sub["edge_dst"], "label_mask": sub["seed_mask"]}
+
+
+def gnn_flops_bytes(cfg, name: str, batch: dict, params: dict) -> dict:
+    """The least work of a NequIP step on `batch`: operations of the
+    forward (multiply-adds as 2), 3x for forward and backward, and the
+    bytes a step must move (its inputs read once: parameters, AdamW's two
+    moments, the batch; parameters and moments written once). Per edge and
+    channel a coupling path is, for the edge's fixed harmonics, a
+    (2l_out+1) x (2l_in+1) map: 2·d_out·d_in, then 2·d_out to weight and
+    add it; the radial MLP, self-interactions, gates, input projection and
+    head are their matmuls. Scatters add E·C·9; geometry and elementwise
+    gates are counted at their outputs."""
+    N, E = batch["positions"].shape[0], batch["edge_src"].shape[0]
+    C, R, H, K = cfg.d_hidden, cfg.n_rbf, nequip.RAD_HIDDEN, GNN_CLASSES[name]
+    per_edge_channel = sum(2 * (2 * lo + 1) * (2 * lf + 1) + 2 * (2 * lo + 1)
+                           for lf, _, lo, _ in nequip.path_list())
+    layer = (2 * E * (R * H + H * nequip.N_PATHS * C) + E * C * per_edge_channel
+             + E * C * 9 + 2 * N * C * C * 9 + 2 * N * C * 2 * C + N * C * 18)
+    fwd = cfg.n_layers * layer + 2 * N * C * (C + K) + E * 40 + E * R * 8
+    if "features" in batch:
+        fwd += 2 * N * batch["features"].shape[1] * C
+    n_param = sum(int(t.numel()) for _, t in tree_leaves(params))
+    batch_bytes = sum(int(np.asarray(v).nbytes) for v in batch.values())
+    return {"forward_flops": float(fwd), "step_flops": float(3 * fwd),
+            "step_bytes": float(6 * 4 * n_param + batch_bytes),
+            "loss_bytes": float(4 * n_param + batch_bytes)}
+
+
+def _gnn_bound_ms(flops: float, nbytes: float) -> tuple:
+    """(ms, "operations" | "bytes"): f32 on CUDA cores (TF32 is off) and HBM."""
+    ops_ms, bytes_ms = flops / H100_F32_FLOPS * 1e3, nbytes / H100_HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _rotation(seed: int) -> np.ndarray:
+    """A rotation matrix from a normal quaternion, f32."""
+    q = np.random.default_rng(seed).normal(size=4)
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                     [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                     [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]],
+                    np.float32)
+
+
+def _gather_routes_ms(params, batch, cfg) -> dict:
+    """The node-feature gathers of one forward (`hoist_gathers` off: 15 a
+    layer, 3 of l=0, 6 of l=1 and 6 of l=2, over 5 layers) with their
+    backward, at this batch's edges, two ways: `nequip.gather` (index_select,
+    its backward the fixed-order reduce over one grouping of the edges made
+    once a forward; the port's) and `embedding_bag_op` at one id a bag on
+    the [N, C·(2l+1)] view (the kernel, its backward `_table_grad`, which
+    sorts the ids at every call). The two gradients must be the same bits."""
+    N, C = batch["positions"].shape[0], cfg.d_hidden
+    src = batch["edge_src"]
+    per_l = {0: 3, 1: 6, 2: 6}
+    order = [l for _ in range(cfg.n_layers) for l in per_l for _ in range(per_l[l])]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xs = [torch.randn((N, C, 2 * l + 1), generator=gen, device="cuda").requires_grad_(True)
+          for l in per_l]
+    dys = [torch.randn((src.shape[0], C, 2 * l + 1), generator=gen, device="cuda") for l in per_l]
+    ids = src.to(torch.int32).reshape(-1, 1).contiguous()
+
+    def run(gather):
+        return torch.autograd.grad([gather(l) for l in order], xs, [dys[l] for l in order])
+
+    def port():
+        seg = eb_ops.segments(src, N)
+        return run(lambda l: nequip.gather(xs[l], seg))
+
+    def kernel():
+        return run(lambda l: eb_ops.embedding_bag_op(xs[l].reshape(N, -1), ids).reshape(
+            -1, C, 2 * l + 1))
+
+    same = all(torch.equal(a, b) for a, b in zip(port(), kernel()))
+    rec = {"gathers": len(order), "port_gather_ms": _median_ms(port),
+           "embedding_bag_route_ms": _median_ms(kernel), "kernel_route_same_gradient_bits": same}
+    del xs, dys
+    if not same:
+        raise AssertionError("the two gather routes' gradients differ")
+    return rec
+
+
+def _profile_step(fn, unprofiled_ms: float) -> dict:
+    """One call of `fn` under torch.profiler after a warm one: the device's
+    busy ms, its idle share against `unprofiled_ms` (the profiler slows
+    the host), the device ops and the six costliest kernels by ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in kernels]) if kernels else None
+    return {"device_busy_ms": busy,
+            "device_idle_share": None if busy is None else 1 - busy / unprofiled_ms,
+            "device_ops": len(kernels),
+            "top_ms": [[k[:80], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]]}
+
+
+def _gnn_steps(params, batch, loss, steps) -> tuple:
+    """`steps` AdamW steps (lr `GNN_LR`) on one batch from `params`:
+    (params, opt_state, losses, each step's ms)."""
+    opt = adamw(GNN_LR)
+    step = make_train_step(loss, opt)
+    state, losses, ms = opt.init(params), [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    return params, state, losses, ms
+
+
+def _ogb_products_reckoning(cfg) -> dict:
+    """Bytes one f32 tensor of ogb_products' edges takes as `repro` computes
+    a layer: a message [E, C, 5] and `_p222`'s [E, C, 3, 3] matrices."""
+    s = GNN_SHAPES["ogb_products"]
+    return {"shape": "ogb_products", "run": False, "nodes": s.n_nodes, "edges": s.n_edges,
+            "message_l2_bytes": s.n_edges * cfg.d_hidden * 5 * 4,
+            "p222_matrix_bytes": s.n_edges * cfg.d_hidden * 9 * 4,
+            "card_bytes": torch.cuda.get_device_properties(0).total_memory,
+            "reason": "one [E, 32, 5] f32 message is 39.6 GB and each of _p222's two "
+                      "[E, 32, 3, 3] matrices 71.3 GB: one card cannot hold a layer of it; it "
+                      "waits for the sharded modules (four cards) or an edge-chunked forward"}
+
+
+def phase_gnn_full_size(name: str) -> dict:
+    """NequIP as configured (5 layers, 32 channels, l_max 2, f32) from seed
+    0 at one dry-run shape: the forward on the card against the CPU's
+    (molecule, full_graph_sm), a rotation of the positions against none,
+    8 AdamW steps on the batch twice from the same start (the loss must
+    fall; the two must end in the same bits), then a step's and the loss's
+    median ms beside their bounds, the gathers' two routes, and
+    `max_memory_allocated`. Returns the 8 steps' launches."""
+    t0 = time.perf_counter()
+    cfg = get_config("nequip")
+    host = gnn_batch(name)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda") for k, v in host.items()}
+    d_feat = host["features"].shape[1] if "features" in host else None
+    defs = nequip.param_defs(cfg, d_feat=d_feat, n_classes=GNN_CLASSES[name])
+    params = init_params(defs, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    loss = (lambda p, b: nequip.energy_loss(p, b, cfg)) if name == "molecule" else \
+        (lambda p, b: nequip.node_class_loss(p, b, cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"phase": "gnn_full_size", "shape": name, "nodes": int(host["positions"].shape[0]),
+           "edges": int(host["edge_src"].shape[0]), "d_feat": d_feat,
+           "classes": GNN_CLASSES[name], "params": param_count(defs),
+           "loss": "energy_loss" if name == "molecule" else "node_class_loss"}
+    with torch.no_grad():
+        out = nequip.forward(params, batch, cfg)
+        R = torch.from_numpy(_rotation(0)).to("cuda")
+        rotated = nequip.forward(params, {**batch, "positions": batch["positions"] @ R.T}, cfg)
+        scale = float(out.abs().max())
+        rec["rotation_rel_diff"] = float((rotated - out).abs().max()) / scale
+        if name != "minibatch_lg":
+            cpu = nequip.forward(_to_cpu(params), {k: torch.from_numpy(np.ascontiguousarray(v))
+                                                   for k, v in host.items()}, cfg)
+            rec["card_vs_cpu_rel_diff"] = float((out.cpu() - cpu).abs().max()) / scale
+    rec.update({"out_shape": list(out.shape), "out_finite": bool(torch.isfinite(out).all()),
+                "largest_output": scale, "rotation_tol": GNN_ROT_TOL,
+                "card_vs_cpu_tol": GNN_CARD_CPU_TOL})
+    del out, rotated
+
+    serve.reset_launch_counts()
+    first = _gnn_steps(params, batch, loss, GNN_STEPS)
+    torch.cuda.synchronize()
+    launches = serve.launch_counts()
+    again = _gnn_steps(params, batch, loss, GNN_STEPS)
+    differ = _same_bits(first[:2], again[:2])
+    rec.update({"steps": GNN_STEPS, "lr": GNN_LR, "losses": first[2], "step_ms_first_run": first[3],
+                "leaves_differing_between_runs": differ, "launches": launches})
+    del first, again
+
+    opt = adamw(GNN_LR)
+    step = make_train_step(loss, opt)
+    state = opt.init(params)
+    rec["step_ms"] = _median_ms(lambda: step(params, state, batch))
+    with torch.no_grad():
+        rec["loss_only_ms"] = _median_ms(lambda: loss(params, batch))
+    rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    rec["step_profile"] = _profile_step(lambda: step(params, state, batch), rec["step_ms"])
+    work = gnn_flops_bytes(cfg, name, host, params)
+    step_bound, step_by = _gnn_bound_ms(work["step_flops"], work["step_bytes"])
+    loss_bound, loss_by = _gnn_bound_ms(work["forward_flops"], work["loss_bytes"])
+    rec.update({**work, "step_bound_ms": step_bound, "step_bound_by": step_by,
+                "loss_bound_ms": loss_bound, "loss_bound_by": loss_by,
+                "step_over_bound": rec["step_ms"] / step_bound})
+    rec.update(_gather_routes_ms(params, batch, cfg))
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+
+    expect = {**_NONE, "embedding_bag": GNN_STEPS if d_feat is None else 0}
+    if not (rec["out_finite"] and np.isfinite(rec["losses"]).all()
+            and rec["losses"][-1] < rec["losses"][0]):
+        raise AssertionError(f"gnn {name}: outputs not finite or the loss did not fall: "
+                             f"{rec['losses']}")
+    if differ:
+        raise AssertionError(f"gnn {name}: two runs from the same start differ in {differ} leaves")
+    if not rec["rotation_rel_diff"] <= GNN_ROT_TOL:
+        raise AssertionError(f"gnn {name}: a rotation moves the outputs by "
+                             f"{rec['rotation_rel_diff']} of the largest")
+    if not rec.get("card_vs_cpu_rel_diff", 0.0) <= GNN_CARD_CPU_TOL:
+        raise AssertionError(f"gnn {name}: card and CPU differ by {rec['card_vs_cpu_rel_diff']}")
+    if launches != expect:
+        raise AssertionError(f"gnn {name}: launches {launches}, expected {expect}")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 
 def main() -> None:
     t0 = time.perf_counter()
@@ -1677,6 +1972,9 @@ def main() -> None:
     by_path["quickstart"] = phase_quickstart()
     for arch in LM_SERVE_ARCHS:
         by_path[f"lm_serve_{arch}"] = phase_lm_serve(arch)
+    for name in GNN_RUN_SHAPES:
+        by_path[f"gnn_{name}"] = phase_gnn_full_size(name)
+    emit({"phase": "gnn_full_size", **_ogb_products_reckoning(get_config("nequip"))})
     for path in ("train_launcher_fm", "train_launcher_dien"):
         if not (by_path[path]["fm_interaction"] or by_path[path]["augru"]):
             raise AssertionError(f"{path} launched neither fm_interaction nor augru")

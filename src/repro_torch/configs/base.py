@@ -1,11 +1,10 @@
 """Config dataclasses + the --arch registry (port of `repro.configs.base`).
 
-The LM and recsys families' dataclasses are kept here, every field
+The LM, GNN and recsys families' dataclasses are kept here, every field
 included (those only `repro`'s sharding reads, such as `moe_impl`,
-`seq_sharded_residual` and `train_layout`, too, so that a config means the
-same in both packages); `get_config` knows the five LM and five recsys
-architectures and raises `NotImplementedError` for the GNN one (`nequip`),
-naming the slice that brings it.
+`seq_sharded_residual`, `train_layout` and `full_mesh_graph`, too, so that
+a config means the same in both packages); `get_config` knows every
+architecture of `repro`: five LM, one GNN (`nequip`) and five recsys.
 """
 from __future__ import annotations
 
@@ -93,6 +92,29 @@ class LMConfig:
 
 
 # ---------------------------------------------------------------------------
+# GNN family
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    family: str  # "gnn"
+    n_layers: int
+    d_hidden: int  # channels per irrep order
+    l_max: int
+    n_rbf: int
+    cutoff: float
+    d_out: int = 1  # per-node regression target (energy contribution)
+    n_species: int = 64  # atom-type / node-type vocabulary for input embedding
+    dtype: str = "float32"
+    remat: bool = True
+    # §Perf knobs (baseline = False, paper-faithful graph partition on dp axes)
+    full_mesh_graph: bool = False  # shard nodes/edges over the WHOLE mesh
+    hoist_gathers: bool = False  # one source-feature gather per l, not per path
+
+
+# ---------------------------------------------------------------------------
 # RecSys family
 # ---------------------------------------------------------------------------
 
@@ -177,10 +199,7 @@ ARCH_NAMES = (
     "taobao_ssa",
 )
 
-# Architectures the port has reached: every LM and recsys arch of `repro`.
-LM_ARCHS = ("command_r_35b", "chatglm3_6b", "yi_6b", "olmoe_1b_7b", "llama4_maverick_400b_a17b")
 RECSYS_ARCHS = ("taobao_ssa", "fm", "dien", "din", "autoint")
-PORTED = LM_ARCHS + RECSYS_ARCHS
 
 
 def get_config(name: str, **overrides):
@@ -188,9 +207,6 @@ def get_config(name: str, **overrides):
     name = name.replace("-", "_")
     if name not in ARCH_NAMES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
-    if name not in PORTED:
-        raise NotImplementedError(f"arch {name!r} is not ported yet; it comes with the "
-                                  "GNN slice (ROADMAP.md Queue 1: configs/nequip.py, models/gnn)")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     cfg = mod.config()
     if overrides:

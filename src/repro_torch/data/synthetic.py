@@ -1,6 +1,6 @@
 """Synthetic Taobao-like and Criteo-like data, the serving simulator's
-lookup workloads and the LM token streams (port of the Taobao, Criteo,
-serving and LM parts of `repro.data.synthetic`).
+lookup workloads, the GNN graphs and the LM token streams (port of
+`repro.data.synthetic`).
 
 Pure numpy, copied so the port imports nothing of `repro`: for the same
 seed these generators give arrays identical to `repro.data.synthetic`'s.
@@ -239,6 +239,62 @@ def criteo_batches(
         logits = 0.5 * (np.square(s).sum(-1) - np.square(e).sum(axis=(1, 2)))
         label = (logits > np.median(logits)).astype(np.float32)
         yield {"sparse_idx": idx.astype(np.int32), "label": label}
+
+
+def random_graph(
+    n_nodes: int, avg_degree: int, *, d_feat: Optional[int] = None,
+    n_classes: int = 7, seed: int = 0,
+) -> Dict[str, np.ndarray]:
+    """Random geometric graph in R^3 with community-ish labels."""
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(size=(n_nodes, 3)).astype(np.float32) * 2.0
+    n_edges = n_nodes * avg_degree
+    src = rng.integers(0, n_nodes, n_edges)
+    # bias edges toward spatial proximity: sample candidates, keep closest
+    cand = rng.integers(0, n_nodes, (n_edges, 4))
+    d = np.linalg.norm(pos[cand] - pos[src][:, None], axis=-1)
+    dst = cand[np.arange(n_edges), np.argmin(d, axis=1)]
+    g = {
+        "positions": pos,
+        "edge_src": src.astype(np.int32),
+        "edge_dst": dst.astype(np.int32),
+        "labels": (np.linalg.norm(pos, axis=1) * n_classes / 4).astype(np.int32) % n_classes,
+    }
+    if d_feat:
+        w = rng.normal(size=(3, d_feat)).astype(np.float32)
+        g["features"] = (pos @ w + 0.1 * rng.normal(size=(n_nodes, d_feat))).astype(
+            np.float32
+        )
+    else:
+        g["species"] = rng.integers(0, 16, n_nodes).astype(np.int32)
+    return g
+
+
+def molecule_batch(
+    n_graphs: int, n_nodes: int = 30, n_edges: int = 64, *, seed: int = 0
+) -> Dict[str, np.ndarray]:
+    """Flattened batch of small molecules; energies from a pairwise
+    Lennard-Jones-ish ground truth (learnable by NequIP)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(size=(n_graphs, n_nodes, 3)).astype(np.float32) * 1.5
+    species = rng.integers(0, 8, (n_graphs, n_nodes)).astype(np.int32)
+    src = rng.integers(0, n_nodes, (n_graphs, n_edges))
+    dst = rng.integers(0, n_nodes, (n_graphs, n_edges))
+    d = np.linalg.norm(
+        pos[np.arange(n_graphs)[:, None], src] - pos[np.arange(n_graphs)[:, None], dst],
+        axis=-1,
+    )
+    energy = np.sum(np.exp(-d) - 0.1 * d, axis=1).astype(np.float32)
+
+    off = (np.arange(n_graphs) * n_nodes)[:, None]
+    return {
+        "positions": pos.reshape(-1, 3),
+        "species": species.reshape(-1),
+        "edge_src": (src + off).reshape(-1).astype(np.int32),
+        "edge_dst": (dst + off).reshape(-1).astype(np.int32),
+        "graph_ids": np.repeat(np.arange(n_graphs), n_nodes).astype(np.int32),
+        "energies": energy,
+    }
 
 
 def lm_token_batches(

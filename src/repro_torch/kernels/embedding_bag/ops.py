@@ -13,7 +13,7 @@ bit.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -35,19 +35,42 @@ def _bag(table, idx, weights):
     return out
 
 
-def _table_grad(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """d_table[v] = Σ of `rows` [B·nnz, d] whose id is v, each row's terms
-    added from the first to the last in batch order: the same bits on
-    either device and in every run. A stable sort groups each id's terms,
-    integer counts give each row's run (an integer sum does not depend on
-    its order), and `segment_reduce` adds each run in order, without a wait
-    for the device. (`index_add_` adds with atomics on CUDA, and
-    `index_put_(accumulate=True)` in parallel on the CPU.)"""
-    flat = idx.reshape(-1)
+class Segments(NamedTuple):
+    """ids [M] grouped by value for a fixed-order sum into `n` rows: `order`,
+    a stable argsort of ids; `lengths` [n], the int64 count of each id."""
+    ids: torch.Tensor
+    order: torch.Tensor
+    lengths: torch.Tensor
+
+
+def segments(ids: torch.Tensor, n: int) -> Segments:
+    """Group `ids` (any shape, flattened; values in [0, n)). Integer counts
+    do not depend on the order of their adds, so `index_add_` gives the
+    same lengths on either device and in every run."""
+    flat = ids.reshape(-1)
     order = torch.argsort(flat, stable=True)
-    counts = torch.zeros(table.shape[0], dtype=torch.int64, device=table.device).index_add_(
+    lengths = torch.zeros(n, dtype=torch.int64, device=flat.device).index_add_(
         0, flat, torch.ones_like(flat, dtype=torch.int64))
-    return torch.segment_reduce(rows[order], "sum", lengths=counts, unsafe=True)
+    return Segments(flat, order, lengths)
+
+
+def segment_sum(rows: torch.Tensor, seg: Segments) -> torch.Tensor:
+    """out[v] = Σ of `rows` [M, ...] whose id is v, [n, ...], each v's terms
+    added from the first to the last in the order of M: the same bits on
+    either device and in every run. `segment_reduce` adds each run of the
+    sorted rows in order, without a wait for the device; a v no id names
+    gets 0. Rows go in as [M, -1]: on CUDA a 1-D input takes a tree
+    reduction (cub's segmented reduce), whose bits are not the CPU's.
+    (`index_add_` adds with atomics on CUDA, and
+    `index_put_(accumulate=True)` in parallel on the CPU.)"""
+    out = torch.segment_reduce(rows[seg.order].reshape(rows.shape[0], -1), "sum",
+                               lengths=seg.lengths, unsafe=True)
+    return out.reshape(seg.lengths.shape[:1] + rows.shape[1:])
+
+
+def _table_grad(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """d_table[v] = Σ of `rows` [B·nnz, d] whose id is v, in batch order."""
+    return segment_sum(rows, segments(idx, table.shape[0]))
 
 
 class _EmbeddingBag(torch.autograd.Function):

@@ -1,7 +1,7 @@
-"""Training launcher (port of `repro.launch.train`) for the LM and recsys families:
+"""Training launcher (port of `repro.launch.train`) for every family:
 
     PYTHONPATH=src python -m repro_torch.launch.train [--arch taobao_ssa|fm|dien|din|autoint|
-        yi_6b|chatglm3_6b|command_r_35b|olmoe_1b_7b|llama4_maverick_400b_a17b] \
+        yi_6b|chatglm3_6b|command_r_35b|olmoe_1b_7b|llama4_maverick_400b_a17b|nequip] \
         [--steps 200] [--batch 256] [--optimizer adamw|sgd|adam8bit] [--lr 1e-3] \
         [--ckpt-dir DIR] [--ckpt-every 100] [--device cuda]
 
@@ -9,8 +9,10 @@ Config -> model -> optimizer -> fault-tolerant loop (checkpoint/resume),
 as `repro`'s: `reduced_config` cuts a recsys arch's vocabularies to 5,000
 and keeps its widths, and an LM arch to 2 layers, d 128, 4 heads of 32,
 d_ff 256, vocab 512 and at most 8 experts top-2 (in its dtype, bf16 for
-every LM config); parameters come from seed 0, batches from `make_data`
-(seed 0; an LM's are 128 tokens a row from `lm_token_batches`),
+every LM config), and keeps NequIP as configured; parameters come from
+seed 0, batches from `make_data` (seed 0; an LM's are 128 tokens a row
+from `lm_token_batches`; NequIP's one `random_graph` of 512 nodes and
+4,096 edges a step, 7 classes, whatever `--batch` says),
 and `ResilientTrainer` checkpoints every `--ckpt-every` steps into
 `--ckpt-dir` (default `repro_torch_ckpt_<arch>` in the temp directory),
 restoring the latest checkpoint there first if it finds one. A checkpoint
@@ -50,6 +52,7 @@ from repro_torch.configs.base import ARCH_NAMES, get_config
 from repro_torch.data import synthetic
 from repro_torch.models.common import init_params
 from repro_torch.models import transformer
+from repro_torch.models.gnn import nequip
 from repro_torch.models.recsys import api as rec_api
 from repro_torch.training import checkpoint
 from repro_torch.training.fault_tolerance import FTConfig, ResilientTrainer
@@ -59,6 +62,7 @@ from repro_torch.training.train_loop import make_train_step
 # `repro`'s printed keys, and the step this call resumed from
 PRINTED = ("arch", "steps", "restarts", "wall_s", "steps_per_s", "resumed_from")
 LM_SEQ = 128  # tokens a row of an LM batch, as `repro`'s launcher
+GNN_NODES, GNN_DEGREE, GNN_CLASSES = 512, 8, 7  # the graph a NequIP step trains on
 
 
 def reduced_config(cfg):
@@ -70,16 +74,25 @@ def reduced_config(cfg):
             n_experts=min(cfg.n_experts, 8) if cfg.n_experts else 0,
             top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
         )
-    fields = tuple(dataclasses.replace(f, vocab=min(f.vocab, 5000)) for f in cfg.fields)
-    return dataclasses.replace(cfg, fields=fields)
+    if cfg.family == "recsys":
+        fields = tuple(dataclasses.replace(f, vocab=min(f.vocab, 5000)) for f in cfg.fields)
+        return dataclasses.replace(cfg, fields=fields)
+    return cfg  # nequip is already small
 
 
 def make_data(cfg, batch: int, device, seed_base: int = 0):
     """`step -> iterator of batches` on `device`: `lm_token_batches` of
     `LM_SEQ` tokens for an LM, `criteo_batches` for FM and AutoInt,
-    `taobao_batches` otherwise, seeded `seed_base + step`, as `repro`'s. A
-    fresh iterator each call, so `make_data(...)(1)` replays the same batches."""
-    if cfg.family == "lm":
+    `taobao_batches` for the other recsys archs, seeded `seed_base + step`,
+    and for NequIP one `random_graph` a batch, seeded `seed_base + step`,
+    `seed_base + step + 1`, ..., as `repro`'s. A fresh iterator each call,
+    so `make_data(...)(1)` replays the same batches."""
+    if cfg.family == "gnn":
+        def gen(step):
+            for i in itertools.count(step):
+                yield synthetic.random_graph(GNN_NODES, GNN_DEGREE, n_classes=GNN_CLASSES,
+                                             seed=seed_base + i)
+    elif cfg.family == "lm":
         gen = lambda step: synthetic.lm_token_batches(  # noqa: E731
             cfg.vocab_size, batch, LM_SEQ, 10**9, seed=seed_base + step)
     elif cfg.interaction in ("fm", "self_attn"):
@@ -111,13 +124,17 @@ def recording_losses(train_step: Callable, losses: List[torch.Tensor]) -> Callab
 def make_loss(cfg):
     if cfg.family == "lm":
         return lambda p, b: transformer.loss(p, b, cfg)
-    return lambda p, b: rec_api.loss(p, b, cfg)
+    if cfg.family == "recsys":
+        return lambda p, b: rec_api.loss(p, b, cfg)
+    return lambda p, b: nequip.node_class_loss(p, b, cfg)
 
 
 def param_defs_for(cfg):
     if cfg.family == "lm":
         return transformer.param_defs(cfg)
-    return rec_api.param_defs(cfg)
+    if cfg.family == "recsys":
+        return rec_api.param_defs(cfg)
+    return nequip.param_defs(cfg, n_classes=GNN_CLASSES)
 
 
 def run(arch: str, *, steps: int = 200, batch: int = 256, optimizer: str = "adamw",
@@ -127,7 +144,7 @@ def run(arch: str, *, steps: int = 200, batch: int = 256, optimizer: str = "adam
     at that step (it raises). Returns `repro`'s record (arch, steps,
     restarts, wall_s, steps_per_s) with "resumed_from", "params",
     "opt_state" and "losses", the loss of each step this call ran."""
-    cfg = reduced_config(get_config(arch))  # refuses an unknown arch, and the GNN one
+    cfg = reduced_config(get_config(arch))  # refuses an unknown arch
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(param_defs_for(cfg), gen, dev)

@@ -10,6 +10,7 @@ float that scales a tensor is rounded to the tensor's dtype first
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -169,17 +170,19 @@ def decode_attention(q, k_cache, v_cache, pos):
     return out[:, None]  # [B,1,K,G,hd]
 
 
-def _linspace01(n: int, device) -> torch.Tensor:
-    """`jnp.linspace(0.0, 1.0, n)` in f32, bit for bit, as XLA compiles it
-    on the CPU: i times the f32 reciprocal of n - 1 (its division by a
-    constant becomes that product), the last point 1. `torch.linspace`
-    rounds some points the other way, and the global samples are floors."""
+def jnp_linspace(stop: float, n: int, device) -> torch.Tensor:
+    """`jnp.linspace(0.0, stop, n)` in f32, bit for bit, as XLA computes it
+    on the CPU, jitted or not: i times fl(stop · fl(1 / (n - 1))) (its
+    `start·(1 - step) + stop·step` simplifies to that product), the last
+    point `stop`. `torch.linspace` rounds some points the other way: at
+    (5.0, 8) index 5 by 2.4e-7, and C2's global samples are floors of
+    (1.0, n)'s."""
     if n == 1:
         return torch.zeros(1, dtype=torch.float32, device=device)
-    frac = torch.arange(n, dtype=torch.float32, device=device) * float(
-        torch.tensor(1.0 / (n - 1), dtype=torch.float32))
-    frac[-1] = 1.0
-    return frac
+    delta = np.float32(stop) * (np.float32(1.0) / np.float32(n - 1))
+    out = torch.arange(n, dtype=torch.float32, device=device) * float(delta)
+    out[-1] = float(np.float32(stop))
+    return out
 
 
 def _rows(cache, idx):
@@ -207,7 +210,7 @@ def sparse_decode_attention(q, k_cache, v_cache, pos, *, window: int, n_global: 
     k_win, v_win = _rows(k_cache, win_pos), _rows(v_cache, win_pos)
 
     # ---- strided global samples over [0, pos]: n_global evenly spaced ----
-    frac = _linspace01(n_global, q.device)
+    frac = jnp_linspace(1.0, n_global, q.device)
     gpos = torch.floor(frac[None] * torch.clamp(pos[:, None], min=1).float()).to(torch.int64)
     k_glb, v_glb = _rows(k_cache, gpos), _rows(v_cache, gpos)  # [B,n_global,K,hd]
 

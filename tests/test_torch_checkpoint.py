@@ -3,7 +3,8 @@
 - The layout is `repro`'s, so a checkpoint crosses in both directions: the
   port's save restores in `repro`, and `repro`'s in the port, with every
   leaf equal (shape, dtype, bits), on a small taobao_ssa's parameters with
-  AdamW's and with adam8bit's state (int8 codes, the 0-d step count).
+  AdamW's and with adam8bit's state (int8 codes, the 0-d step count), and
+  on NequIP's (its stacked `[L, ...]` layer leaves) with AdamW's.
 - The manifest is written by the port's own msgpack codec: its bytes are
   `msgpack.packb`'s, and `msgpack.unpackb` reads them back.
 - `repro`'s own checkpoint tests (`tests/test_training.py`), on the port.
@@ -313,3 +314,38 @@ def test_a_port_bf16_checkpoint_is_repros_bytes_and_reads_back_as_its_values(bf1
         np.testing.assert_array_equal(got, r, err_msg=str(i))
     with pytest.raises(TypeError, match="V2"):
         jax_checkpoint.restore(tmp_path / "repro", 4, bf16_tree)
+
+
+@pytest.fixture(scope="module")
+def nequip_trees():
+    """(repro tree, port tree) of NequIP's launcher parameters (stacked
+    `[L, ...]` layer leaves under "layers") and AdamW's state, after one
+    update from the same random gradients."""
+    from repro.configs.base import get_config as jax_get_config
+    from repro.models.common import init_params as jax_init_params
+    from repro.models.gnn import nequip as jax_nequip
+
+    jp = jax_init_params(jax_nequip.param_defs(jax_get_config("nequip"), n_classes=7),
+                         jax.random.key(3))
+    rng = np.random.default_rng(3)
+    grads = jax.tree.map(lambda p: rng.normal(size=p.shape).astype(np.float32), to_numpy(jp))
+    jo, to = jax_opt.get_optimizer("adamw", 1e-3), optimizer.get_optimizer("adamw", 1e-3)
+    tp = to_torch_params(jp)
+    _, js = jo.update(jax.tree.map(jnp.asarray, grads), jo.init(jp), jp)
+    _, ts = to.update(from_numpy_tree(grads, "cpu"), to.init(tp), tp)
+    assert tp["layers"]["rad_w2"].shape == (5, 32, 15 * 32)
+    return (jp, js), (tp, ts)
+
+
+def test_a_nequip_checkpoint_of_the_port_restores_in_repro(nequip_trees, tmp_path):
+    (jtree, ptree) = nequip_trees
+    checkpoint.save(tmp_path, 7, ptree)
+    _assert_same_leaves(jax_checkpoint.restore(tmp_path, 7, jtree), ptree)
+
+
+def test_a_nequip_checkpoint_of_repro_restores_in_the_port(nequip_trees, tmp_path):
+    (jtree, ptree) = nequip_trees
+    jax_checkpoint.save(tmp_path, 7, jtree)
+    leaves, _ = checkpoint.flatten(ptree)
+    like = checkpoint.unflatten(ptree, [torch.zeros_like(x) for x in leaves])
+    _assert_same_leaves(jtree, checkpoint.restore(tmp_path, 7, like))

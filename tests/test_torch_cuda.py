@@ -1158,3 +1158,77 @@ def test_reduced_lm_forward_and_decode_on_card_match_the_cpu(cuda_device, arch):
     assert abs(float(hl) - float(cl)) <= 1e-5 * abs(float(hl))
     for a, b in zip([hg] + hs, [cg] + cs):
         assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+# The GNN family (NequIP): its gathers and scatters are the fixed-order
+# reduce (`kernels/embedding_bag/ops.segment_sum`), on the card the CPU's
+# bits (`segment_reduce` adds each segment's rows in order on either
+# device) and the same bits in every run; the model as configured on the
+# training launcher's graphs, f32 with TF32 off, against the CPU within
+# 1e-5 of the largest output, each gradient within 1e-4 of its leaf's
+# largest entry (f32 sums in another order), two backwards the same bits,
+# and one `embedding_bag` launch a forward (the species lookup), none in the
+# backward, remat's recomputation included.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,n,inner", [(168960, 169984, (32, 5)), (10556, 2708, (32, 3)),
+                                       (4096, 512, (32, 1)), (3840, 128, ())])
+def test_fixed_order_scatter_and_gather_on_card_are_the_cpus_bits(cuda_device, M, n, inner):
+    from repro_torch.models.gnn import nequip
+
+    rng = np.random.default_rng(M)
+    ids = torch.from_numpy(rng.integers(0, n, M).astype(np.int32))
+    rows = torch.from_numpy(rng.normal(size=(M,) + inner).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(n,) + inner).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        seg = ops.segments(ids.to(dev), n)
+        xd = x.to(dev).requires_grad_(True)
+        (dx,) = torch.autograd.grad(nequip.gather(xd, seg), xd, rows.to(dev))
+        out[str(dev)] = (nequip.scatter_sum(rows.to(dev), seg), dx)
+    (s_cpu, dx_cpu), (s_card, dx_card) = out["cpu"], out[str(cuda_device)]
+    seg = ops.segments(ids.to(cuda_device), n)
+    again = nequip.scatter_sum(rows.to(cuda_device), seg)
+    assert torch.equal(s_card, again) and torch.equal(s_card.cpu(), dx_card.cpu())
+    assert torch.equal(s_card.cpu(), s_cpu) and torch.equal(dx_card.cpu(), dx_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [True, False])
+def test_nequip_on_card_matches_the_cpu_and_repeats_its_gradient(cuda_device, remat):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models.common import init_params, tree_leaves, tree_map
+    from repro_torch.models.gnn import nequip
+
+    cfg = dataclasses.replace(get_config("nequip"), remat=remat)
+    host = init_params(train.param_defs_for(cfg), torch.Generator().manual_seed(0), "cpu")
+    batch = next(train.make_data(cfg, 1, "cpu")(0))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {}
+        for dev, reps in (("cpu", 1), ("cuda", 2)):
+            params = tree_map(lambda t: t.to(dev), host)
+            paths, leaves = zip(*[(p, t.requires_grad_(True)) for p, t in tree_leaves(params)])
+            b = {k: v.to(dev) for k, v in batch.items()}
+            serve.reset_launch_counts()
+            runs = []
+            for _ in range(reps):
+                out = nequip.forward(params, b, cfg)
+                loss, _ = nequip.node_class_loss(params, b, cfg)
+                runs.append((out.detach().cpu(), [g.cpu() for g in torch.autograd.grad(loss, leaves)]))
+            torch.cuda.synchronize()
+            res[dev] = (runs, serve.launch_counts())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (host_runs, _), (card_runs, launches) = res["cpu"], res["cuda"]
+    assert launches == {**{k: 0 for k in launches}, "embedding_bag": 4}  # two forwards a run
+    (h_out, h_grads), (c_out, c_grads) = host_runs[0], card_runs[0]
+    assert float((h_out - c_out).abs().max()) <= 1e-5 * float(h_out.abs().max())
+    for path, a, b in zip(paths, h_grads, c_grads):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(a.abs().max()), 1e-30), path
+    assert all(torch.equal(a, b) for a, b in zip(c_grads, card_runs[1][1]))

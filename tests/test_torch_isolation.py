@@ -55,6 +55,8 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
             "repro_torch.models.transformer", "repro_torch.distributed.expert_parallel",
             "repro_torch.configs.yi_6b", "repro_torch.configs.olmoe_1b_7b",
             "repro_torch.configs.shapes"} <= walked
+    assert {"repro_torch.models.gnn.irreps", "repro_torch.models.gnn.nequip",
+            "repro_torch.models.gnn.sampler", "repro_torch.configs.nequip"} <= walked
 
 
 _FORBIDDEN = re.compile(

@@ -191,7 +191,7 @@ def test_global_sample_positions_are_repros_to_the_index(n):
     frac = jnp.linspace(0.0, 1.0, n)
     ref = np.asarray(jnp.floor(frac[None] * jnp.maximum(jnp.asarray(pos)[:, None], 1))
                      .astype(jnp.int32))
-    frac_t = tl._linspace01(n, "cpu")
+    frac_t = tl.jnp_linspace(1.0, n, "cpu")
     np.testing.assert_array_equal(frac_t.numpy(), np.asarray(frac))
     got = torch.floor(frac_t[None] * torch.clamp(torch.from_numpy(pos)[:, None], min=1).float())
     np.testing.assert_array_equal(got.to(torch.int32).numpy(), ref)

@@ -200,13 +200,13 @@ def test_cli_without_cuda_exits_nonzero():
 
 
 def test_unported_arch_and_interaction_raise():
-    """Every recsys arch and interaction of `repro` is ported, and every LM
-    arch; the GNN arch and unknown names are refused, as `repro`'s `api`
-    refuses an unknown interaction."""
+    """Every arch and interaction of `repro` is ported, the GNN arch too,
+    whose config is `repro`'s; unknown names are refused, as `repro`'s
+    `api` refuses an unknown interaction."""
+    from repro.configs.base import get_config as jax_get_config
     from repro_torch.models.recsys import api, autoint, din
 
-    with pytest.raises(NotImplementedError, match="GNN slice"):
-        get_config("nequip")
+    assert dataclasses.asdict(get_config("nequip")) == dataclasses.asdict(jax_get_config("nequip"))
     with pytest.raises(KeyError):
         get_config("no_such_arch")
     with pytest.raises(KeyError):

@@ -5,12 +5,15 @@ kernels' autograd Functions, against `repro`, on the CPU.
   the launcher's config (vocabularies cut to 5,000, widths as configured),
   and each LM arch (yi_6b, chatglm3_6b, command_r_35b, olmoe_1b_7b,
   llama4_maverick_400b_a17b) at `repro`'s (2 layers, d 128, vocab 512, at
-  most 8 experts top-2, bf16), and prints the keys `repro`'s launcher
-  prints, and `resumed_from`; the GNN arch (nequip) is refused, naming its
-  slice.
+  most 8 experts top-2, bf16), and the GNN arch (nequip) as configured, and
+  prints the keys `repro`'s launcher prints, and `resumed_from`. NequIP's
+  config, parameter layout and graphs are `repro`'s launcher's.
 - An LM run's losses equal those of `repro`'s `make_train_step` loop from
   the port's initial parameters carried into JAX (bf16 bits), on the same
-  batches: within `LM_LOSS_REL` of each loss (see there).
+  batches: within `LM_LOSS_REL` of each loss (see there). So do NequIP's,
+  within `GNN_LOSS_REL`, at 2 layers of 8 channels in both packages (the
+  full config takes ~3 s a step on one CPU thread here: `chip_smoke.py`
+  phase 13 trains it as configured on the card).
 - A deviation from `repro`: a rerun over a finished checkpoint reports the
   restored step and a rate of the steps it trained (none); `repro`'s
   reports one step more and divides the restored steps by its seconds.
@@ -60,6 +63,10 @@ GRAD_ATOL = 1e-5
 # weight by about lr whatever the gradient's size)
 LM_LOSS_REL = 2e-3
 LM_ARCHS = ["yi_6b", "chatglm3_6b", "command_r_35b", "olmoe_1b_7b", "llama4_maverick_400b_a17b"]
+# f32 NequIP against `repro`, relative to each loss: measured up to 6.1e-8
+# over three AdamW steps (f32 sums in another order)
+GNN_LOSS_REL = 1e-5
+SMALL_GNN = dict(n_layers=2, d_hidden=8)
 
 
 def _json_line(text):
@@ -73,7 +80,8 @@ def test_repros_launcher_prints_these_keys(tmp_path, monkeypatch, capsys):
     assert set(_json_line(capsys.readouterr().out)) == KEYS
 
 
-@pytest.mark.parametrize("arch", ["taobao_ssa", "fm", "dien", "din", "autoint"] + LM_ARCHS)
+@pytest.mark.parametrize("arch", ["taobao_ssa", "fm", "dien", "din", "autoint"] + LM_ARCHS
+                         + ["nequip"])
 def test_main_trains_each_arch_on_the_cpu_and_prints_repros_keys(arch, tmp_path, capsys):
     batch = "4" if arch in LM_ARCHS else "8"
     train.main(["--arch", arch, "--device", "cpu", "--steps", "3", "--batch", batch,
@@ -85,10 +93,72 @@ def test_main_trains_each_arch_on_the_cpu_and_prints_repros_keys(arch, tmp_path,
 
 @pytest.mark.parametrize("arch", ["nequip"])
 def test_lm_and_gnn_archs_are_refused(arch, tmp_path):
-    """Only the GNN arch is left: its refusal names its slice."""
-    with pytest.raises(NotImplementedError, match="GNN slice"):
-        train.main(["--arch", arch, "--device", "cpu", "--steps", "1",
-                    "--ckpt-dir", str(tmp_path)])
+    """No arch is refused any more: the GNN arch, the last, resolves to
+    `repro`'s config, which the launcher keeps as it is, with `repro`'s
+    launcher's parameter layout (7 classes) and graphs (one `random_graph`
+    of 512 nodes a step, seeded by the step)."""
+    import dataclasses
+
+    from repro.models.common import ParamDef as JaxParamDef
+    from repro_torch.models.common import tree_leaves
+
+    cfg = train.reduced_config(get_config(arch))
+    jcfg = jax_train.reduced_config(jax_train.get_config(arch))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg) and cfg.family == "gnn"
+    ref = jax.tree.map(lambda d: d.shape, jax_train.param_defs_for(jcfg),
+                       is_leaf=lambda x: isinstance(x, JaxParamDef))
+    assert [(p, d.shape) for p, d in tree_leaves(train.param_defs_for(cfg))] == \
+        list(tree_leaves(ref))
+    for _, a, b in zip(range(3), jax_train.make_data(jcfg, 8)(2),
+                       train.resumable(train.make_data(cfg, 8, "cpu"))(2)):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(np.asarray(a[k]), b[k].numpy(), err_msg=k)
+
+
+def _small_nequip(monkeypatch):
+    """The launcher's NequIP at 2 layers of 8 channels in both packages."""
+    import dataclasses
+
+    small = dataclasses.replace(get_config("nequip"), **SMALL_GNN)
+    monkeypatch.setattr(train, "get_config", lambda name: small)
+    return small, dataclasses.replace(jax_train.get_config("nequip"), **SMALL_GNN)
+
+
+def test_nequip_losses_match_repros_train_step_loop(tmp_path, monkeypatch, gnn_rules):
+    """Three AdamW steps through the launcher, and `repro`'s jitted
+    `make_train_step` from the same initial parameters (the port's, seed 0)
+    on `repro`'s launcher's graphs."""
+    from repro.training.optimizer import get_optimizer as jax_get_optimizer
+    from repro.training.train_loop import make_train_step as jax_make_train_step
+    from repro_torch.models.common import init_params, to_numpy_tree
+
+    cfg, jcfg = _small_nequip(monkeypatch)
+    rec = train.run("nequip", steps=3, ckpt_dir=str(tmp_path), device="cpu")
+    start = init_params(train.param_defs_for(cfg), torch.Generator().manual_seed(0), "cpu")
+    jparams = jax.tree.map(jnp.asarray, to_numpy_tree(start))
+    opt = jax_get_optimizer("adamw", 1e-3)
+    step = jax.jit(jax_make_train_step(jax_train.make_loss(jcfg, gnn_rules), opt))
+    state, ref = opt.init(jparams), []
+    for _, batch in zip(range(3), jax_train.make_data(jcfg, 8)(0)):
+        jparams, state, metrics = step(jparams, state, batch)
+        ref.append(float(metrics["loss"]))
+    assert rec["losses"] == pytest.approx(ref, rel=GNN_LOSS_REL)
+
+
+def test_a_crashed_and_resumed_nequip_run_ends_in_the_bits_of_an_uninterrupted_one(
+        tmp_path, monkeypatch):
+    _small_nequip(monkeypatch)
+    kw = dict(steps=6, ckpt_every=2, device="cpu")
+    with pytest.raises(RuntimeError, match="injected failure at step 5"):
+        train.run("nequip", ckpt_dir=str(tmp_path / "a"), crash_at=5, **kw)
+    resumed = train.run("nequip", ckpt_dir=str(tmp_path / "a"), **kw)
+    whole = train.run("nequip", ckpt_dir=str(tmp_path / "b"), **kw)
+    assert (resumed["restarts"], resumed["resumed_from"], resumed["steps"]) == (1, 4, 6)
+    assert resumed["losses"] == whole["losses"][4:] and all(np.isfinite(whole["losses"]))
+    a, _ = checkpoint.flatten((resumed["params"], resumed["opt_state"]))
+    b, _ = checkpoint.flatten((whole["params"], whole["opt_state"]))
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
