@@ -161,6 +161,20 @@ launcher's `random_graph`s of 512 nodes (crash, resume and uninterrupted
 runs the same bits; one `embedding_bag` launch a step, the species
 lookup; SGD and AdamW steps on the card against the CPU's under phase 5's
 rule).
+18. distributed — the distributed layer on one card through a real NCCL
+   communicator at world size 1 (a FileStore, the (1, 1) test mesh; no
+   fallback to gloo): olmoe_1b_7b's MoE layer at full width (bf16, 64
+   experts top-8, d_ff 1,024) on 4 × 2,048 tokens and llama4's (128
+   experts top-1, d_ff 8,192, one shared expert; 32.2 GB of expert
+   weights, forward only) on 1 × 4,096, each through the mesh (every
+   all_to_all, all_gather and all_reduce run) and through the
+   one-group path: the same bits (out, aux, drop counts and, for olmoe,
+   every gradient; deterministic algorithms on), then each path's median
+   forward (and forward+backward) ms and peak GB; olmoe's f32 weight
+   gradients through `compress_allreduce_mean` (mean and residual the
+   CPU's bits; 50 error-feedback steps within `repro`'s bound; ms a step,
+   bytes handed to the all-reduce); the olmoe layer saved and restored
+   under its `param_pspecs`, every leaf a DTensor of the saved bits.
 
 Then the `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and the exit code is
@@ -168,6 +182,8 @@ not 0; nothing is caught and passed over.
 """
 import dataclasses
 import json
+import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -198,9 +214,15 @@ from repro_torch.launch.train import make_data  # noqa: E402
 from repro_torch.training import checkpoint  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.distributed import expert_parallel, grad_compression  # noqa: E402
+from repro_torch.distributed.sharding import LM_RULES, adapt_rules  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.models.gnn import nequip, sampler  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as eb_ops  # noqa: E402
-from repro_torch.models.common import init_params, param_count, tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.common import (  # noqa: E402
+    init_params, param_count, param_pspecs, tree_leaves, tree_map,
+)
 from repro_torch.models.recsys import api  # noqa: E402
 from repro_torch.training.optimizer import adamw, sgd  # noqa: E402
 from repro_torch.training.train_loop import make_train_step  # noqa: E402
@@ -322,6 +344,15 @@ GNN_ROT_TOL = 1e-4
 # the spec sheet's dense bf16 rate, f32 rate outside the tensor cores and
 # HBM rate of an H100 SXM at 700 W
 H100_BF16_FLOPS, H100_F32_FLOPS, H100_HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
+# phase 18: the distributed layer through NCCL at world size 1. Each MoE
+# layer at full width, bf16, one layer's weights from seed 0: olmoe_1b_7b's
+# forward and backward on 4 x 2,048 tokens, llama4's forward on 1 x 4,096
+# (32.2 GB of expert weights; over the one-rank dp group the FSDP gather
+# is skipped, so neither path holds a second copy). `repro`'s error-feedback test: 50 steps
+# average to the gradient within rtol = atol = 2e-2, here on the scale of
+# each leaf's largest |g| (the leaves' gradients are far below 1)
+DIST_MOE = {"olmoe_1b_7b": (4, 2048, True), "llama4_maverick_400b_a17b": (1, 4096, False)}
+COMPRESS_STEPS, COMPRESS_TOL = 50, 2e-2
 KERNEL_SYMBOL = {"embedding_bag": "embedding_bag_kernel",
                  "fm_interaction": "fm_interaction_kernel", "augru": "augru_kernel",
                  "block_pruned_matmul": "block_pruned_matmul_",  # tall, small and rows
@@ -1948,6 +1979,209 @@ def phase_gnn_full_size(name: str) -> dict:
 
 
 
+def _moe_layer(arch: str, gen):
+    """`arch`'s MoE layer as configured, bf16: the defs of one stacked
+    layer and weights drawn in bf16 in place (std 1/√fan_in, `fan_in`'s
+    rule), without the f32 copy `init_params` would make of 32 GB."""
+    cfg = get_config(arch)
+    defs = moe_lib.moe_param_defs(cfg, 1, torch.bfloat16)
+    params = {k: torch.empty(d.shape, dtype=d.dtype, device="cuda").normal_(
+        0.0, 1.0 / math.sqrt(d.shape[-2]), generator=gen) for k, d in sorted(defs.items())}
+    return cfg, defs, params
+
+
+def _ep_run(x, lp, cfg, mesh, cot=None):
+    """`moe_ffn_ep` once: (out, aux, [dropped_pair, dropped_expert], the
+    gradients of Σ out·cot + aux for x and each weight, or None)."""
+    stats = {}
+    out, aux = expert_parallel.moe_ffn_ep(x, lp, cfg, stats, mesh=mesh)
+    drops = [int(stats["dropped_pair"][0]), int(stats["dropped_expert"][0])]
+    grads = None
+    if cot is not None:  # world size 1: aux enters each rank's loss as aux / 1
+        leaves = [x] + [lp[k] for k in sorted(lp)]
+        grads = torch.autograd.grad(torch.sum(out.float() * cot) + aux, leaves)
+    return out, aux, drops, grads
+
+
+def _ep_bound(cfg, tokens: int, kept: int, weight_bytes: int, backward: bool) -> dict:
+    """The MoE layer's least time on the card: the operations of the
+    entries this run's data keeps (each a SwiGLU of three [d_model, d_ff]
+    matmuls, 2 operations a multiply-add; the shared expert on every token;
+    the backward twice the forward's) at the bf16 rate, against reading the
+    weights (and writing their gradients) and the tokens in and out at the
+    HBM rate. Capacity padding is not work."""
+    per_row = 3 * 2 * cfg.d_model * cfg.d_ff
+    flops = (kept + tokens * cfg.n_shared_experts) * per_row * (3 if backward else 1)
+    act = tokens * cfg.d_model * 2 * (4 if backward else 2)  # x, out (+ cot, dx)
+    nbytes = weight_bytes * (2 if backward else 1) + act
+    ms = {"operations": flops / H100_BF16_FLOPS * 1e3, "bytes": nbytes / H100_HBM_BYTES_PER_S * 1e3}
+    by = max(ms, key=ms.get)
+    return {"flops": flops, "bytes": nbytes, "bound_ms": ms[by], "bound_by": by}
+
+
+def _ep_moe(arch: str, mesh) -> dict:
+    """One MoE layer through the mesh and through the one-group path: the
+    same bits (deterministic algorithms on, so that every scatter-add of
+    the backward sums in one order), then each path's median ms and peak
+    memory with PyTorch's default algorithms."""
+    batch, seq, backward = DIST_MOE[arch]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg, _, params = _moe_layer(arch, gen)
+    lp = {k: v[0].detach().requires_grad_(backward) for k, v in params.items()}
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    x.requires_grad_(backward)
+    cot = torch.randn(x.shape, generator=gen, device="cuda") if backward else None
+    paths = {"one_group": None, "mesh": mesh}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.set_grad_enabled(backward):
+            runs = {name: _ep_run(x, lp, cfg, m, cot) for name, m in paths.items()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (o1, a1, d1, g1), (o2, a2, d2, g2) = runs["one_group"], runs["mesh"]
+    differ = int(not torch.equal(o1, o2)) + int(not torch.equal(a1, a2))
+    if backward:
+        differ += sum(not torch.equal(a, b) for a, b in zip(g1, g2))
+    rec = {"phase": "distributed", "part": "moe", "arch": arch, "tokens": [batch, seq],
+           "d_model": cfg.d_model, "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+           "d_ff": cfg.d_ff, "n_shared_experts": cfg.n_shared_experts, "dtype": "bfloat16",
+           "expert_weight_bytes": sum(params[k].numel() * 2 for k in ("w_gate", "w_up", "w_down")),
+           "aux": float(a1.detach()), "dropped": {"one_group": d1, "mesh": d2},
+           "outputs_and_grads_differing": differ}
+    weight_bytes = sum(v.numel() * 2 for k, v in params.items() if k != "router")
+    kept = batch * seq * cfg.top_k - sum(d1)
+    rec["forward_bound"] = _ep_bound(cfg, batch * seq, kept, weight_bytes, False)
+    if backward:
+        rec["forward_backward_bound"] = _ep_bound(cfg, batch * seq, kept, weight_bytes, True)
+    del runs, o1, o2, g1, g2
+    for name, m in paths.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            rec[f"{name}_forward_ms"] = _median_ms(lambda: expert_parallel.moe_ffn_ep(
+                x, lp, cfg, mesh=m))
+        if backward:
+            rec[f"{name}_forward_backward_ms"] = _median_ms(lambda: _ep_run(x, lp, cfg, m, cot))
+        rec[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec[f"{name}_forward_over_bound"] = (rec[f"{name}_forward_ms"]
+                                             / rec["forward_bound"]["bound_ms"])
+        if backward:
+            rec[f"{name}_forward_backward_over_bound"] = (
+                rec[f"{name}_forward_backward_ms"] / rec["forward_backward_bound"]["bound_ms"])
+    emit(rec)
+    if differ or d1 != d2:
+        raise AssertionError(f"{arch}: the mesh path and the one-group path differ: {rec}")
+    grads = None
+    if backward:  # the weights' gradients, f32, for the compression part
+        _, _, _, g = _ep_run(x, lp, cfg, mesh, cot)
+        grads = {k: t.float() for k, t in zip(sorted(lp), g[1:])}
+    del params, lp, x, cot
+    torch.cuda.empty_cache()
+    return grads
+
+
+def _compression(grads: dict, group) -> dict:
+    """`compress_allreduce_mean` over NCCL on `grads`: one step against the
+    CPU's `_dq(_q(g + r))` to the bit, then `COMPRESS_STEPS` error-feedback
+    steps whose average holds to `repro`'s bound; ms a step and the bytes
+    handed to the all-reduce."""
+    zero = {k: torch.zeros_like(g) for k, g in grads.items()}
+    differ = 0
+    for k, g in grads.items():
+        mean, res = grad_compression.compress_allreduce_mean(g, zero[k], group)
+        cmean, cres = grad_compression.compress_allreduce_mean(g.cpu(), zero[k].cpu())
+        differ += int(not torch.equal(mean.cpu(), cmean)) + int(not torch.equal(res.cpu(), cres))
+        del mean, res, cmean, cres
+    step = grad_compression.make_compressed_allreduce(group)
+    res = grad_compression.init_residuals(grads)
+    acc = {k: torch.zeros_like(g) for k, g in grads.items()}
+    ms = []
+    for _ in range(COMPRESS_STEPS):
+        (means, res), t = _timed(lambda: step(grads, res))
+        ms.append(t)
+        for k in acc:
+            acc[k] += means[k]
+    worst = 0.0  # the largest |average - g| over its bound, of any element
+    for k, g in grads.items():
+        bound = COMPRESS_TOL * (g.abs() + g.abs().max())
+        worst = max(worst, float(((acc[k] / COMPRESS_STEPS - g).abs() / bound).max()))
+    rec = {"phase": "distributed", "part": "grad_compression", "leaves": sorted(grads),
+           "elements": sum(g.numel() for g in grads.values()),
+           "allreduce_bytes_a_step": sum(grad_compression.allreduce_bytes(g)
+                                         for g in grads.values()),
+           "card_vs_cpu_leaves_differing": differ, "steps": COMPRESS_STEPS,
+           "step_ms_median": float(np.median(ms)), "step_ms": ms,
+           "average_error_over_bound": worst}
+    emit(rec)
+    if differ:
+        raise AssertionError(f"compressed mean on the card is not the CPU's: {rec}")
+    if not worst <= 1.0:
+        raise AssertionError(f"error feedback's average left repro's bound: {rec}")
+    return rec
+
+
+def _restore_as_dtensors(mesh, root: Path) -> dict:
+    """olmoe_1b_7b's MoE layer saved, then restored under its
+    `param_pspecs` (LM_RULES adapted to the mesh): every leaf a DTensor
+    whose local tensor has the saved bits."""
+    from torch.distributed.tensor import DTensor
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    _, defs, params = _moe_layer("olmoe_1b_7b", gen)
+    specs = param_pspecs(defs, adapt_rules(LM_RULES, mesh))
+    (_, save_ms) = _timed(lambda: checkpoint.save(root, 1, params))
+    restored, restore_ms = _timed(lambda: checkpoint.restore(root, 1, params, shardings=specs,
+                                                             mesh=mesh))
+    differ = [k for k in params if not isinstance(restored[k], DTensor)
+              or not torch.equal(restored[k].to_local(), params[k])]
+    rec = {"phase": "distributed", "part": "restore", "arch": "olmoe_1b_7b",
+           "specs": {k: list(v) for k, v in specs.items()},
+           "placements": {k: [str(p) for p in restored[k].placements] for k in restored},
+           "bytes": sum(t.numel() * t.element_size() for t in params.values()),
+           "save_ms": save_ms, "restore_ms": restore_ms, "leaves_differing": differ}
+    emit(rec)
+    if differ:
+        raise AssertionError(f"restored leaves not DTensors of the saved bits: {differ}")
+    del params, restored
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_distributed() -> dict:
+    """Phase 18: the distributed layer on one card through a real NCCL
+    communicator at world size 1 (the default process group from a
+    FileStore, the (1, 1) test mesh). It never falls back to gloo. Returns
+    the kernels' launches (none)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(root / "store"), 1),
+                            rank=0, world_size=1)
+    serve.reset_launch_counts()
+    try:
+        mesh = make_test_mesh("cuda")
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"the process group runs {dist.get_backend()}, not nccl")
+        grads = _ep_moe("olmoe_1b_7b", mesh)
+        _ep_moe("llama4_maverick_400b_a17b", mesh)
+        _compression(grads, dist.group.WORLD)
+        del grads
+        torch.cuda.empty_cache()
+        _restore_as_dtensors(mesh, root / "ckpt")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = serve.launch_counts()
+    emit({"phase": "distributed", "part": "done", "backend": "nccl", "world_size": 1,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    if any(launches.values()):
+        raise AssertionError(f"the distributed phase launched kernels: {launches}")
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_device()
@@ -1975,6 +2209,7 @@ def main() -> None:
     for name in GNN_RUN_SHAPES:
         by_path[f"gnn_{name}"] = phase_gnn_full_size(name)
     emit({"phase": "gnn_full_size", **_ogb_products_reckoning(get_config("nequip"))})
+    by_path["distributed"] = phase_distributed()
     for path in ("train_launcher_fm", "train_launcher_dien"):
         if not (by_path[path]["fm_interaction"] or by_path[path]["augru"]):
             raise AssertionError(f"{path} launched neither fm_interaction nor augru")

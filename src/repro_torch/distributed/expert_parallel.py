@@ -1,32 +1,60 @@
-"""Expert-parallel MoE dispatch (port of `repro.distributed.expert_parallel`)
-on one device.
+"""Expert-parallel MoE dispatch across ranks (port of
+`repro.distributed.expert_parallel`).
 
-`repro`'s `moe_ffn_ep` is a shard_map over the expert axis:
+`repro`'s `moe_ffn_ep` is a shard_map over the expert axis; here each rank
+runs the same body on its own shards, and the collectives go over the
+mesh's process groups:
 
   local top-k routing
-   -> sort entries by target expert group (model-axis device)
+   -> sort entries by target expert group (model-axis rank)
    -> capacity-bounded send buffers            [n_groups, C_pair, D]
-   -> all_to_all over the expert axis
+   -> all_to_all over the expert axis          (the ONLY big collective)
    -> local per-expert grouping (second sort)  [E_loc, C_e, D]
-   -> batched expert FFN
+   -> batched expert FFN (weights gathered over the dp axes, FSDP-style)
    -> inverse scatter -> all_to_all back -> weighted combine.
 
-This module computes it as `repro` does on its one-device mesh: one group
-(`n_groups = 1`, `E_loc = E`), where `all_to_all` and the weights'
-`all_gather` are identities and the aux loss's `pmean` is the value
-itself, while both capacity stages (`C_pair`, then `C_e` per expert) still
-apply and drop what they drop there. The exchange across ranks comes with
-the `torch.distributed` slice; nothing here stands in for absent ranks.
+The layout is `repro`'s (`ep_specs`, under `LM_RULES` adapted to the mesh):
+x by batch over the dp axes and by seq over "model"; the expert weights by
+expert over "model" and by dim 1 over the dp axes; the shared expert's
+weights by dim 0 over the dp axes; the router replicated. Every step is
+differentiable through this module's autograd Functions over
+`torch.distributed`'s collectives: an all_to_all's backward is the reverse
+all_to_all, an all_reduce's an all_reduce, an all_gather's a
+reduce-scatter. shard_map's transpose
+sums the gradient of an input over the mesh dims its spec leaves out; the
+port does so explicitly (`_Exchange.replicated`): the router's over
+every mesh dim, the shared expert's over those that are not dp axes
+("model").
+
+The aux loss is `repro`'s: each rank's own `E·Σ me·ce`, averaged over the
+ranks (`pmean`), so it depends on the mesh (a (1, 4) and a (2, 2) mesh give
+different values for the same tokens). Every rank returns the same aux; a
+replicated output's cotangent is summed across ranks in the backward, so
+the global loss that `repro` differentiates is the sum of each rank's loss
+with aux weighted 1/n on each of the n ranks.
+
+Without a mesh (or on a mesh whose "model" dim is 1) there is one group,
+`n_groups = 1`, `E_loc = E`; both capacity stages (`C_pair`, then `C_e`
+per expert) still apply. With `mesh=None` no collective runs; with a
+mesh the all_to_alls and the aux all_reduces run whatever its size, and at
+one rank each gives back its input bits. The FSDP gather runs only over a
+dp group of more than one rank: over one rank it would copy the weights
+into a second buffer of the same bits.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import LM_RULES, P, adapt_rules, mesh_axis_names
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.moe import expert_ffn, route, scatter_rows
+
+_SHARED = ("shared_gate", "shared_up", "shared_down")
 
 
 def _sort_dispatch(keys: torch.Tensor, n_bins: int, capacity: int):
@@ -51,21 +79,187 @@ def _capacity(n: int, bins: int, cf: float) -> int:
     return max(4, math.ceil(n / bins * cf))
 
 
-def moe_ffn_ep(x, layer_params, cfg, stats=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Expert-parallel MoE FFN in one group. x: [B, S, D]. Returns (out,
-    aux). `stats`, if a dict, gets appended the entries this call dropped
-    at each capacity stage, under "dropped_pair" (the send buffers' C_pair)
-    and "dropped_expert" (the experts' C_e) (tensors, read by the caller
-    when it likes): a record, which changes no output."""
-    n_groups = 1
+def _dp_axes(rules) -> Tuple[str, ...]:
+    dp = rules.get("batch") or ()
+    return (dp,) if isinstance(dp, str) else tuple(dp)
+
+
+def ep_specs(rules, has_shared: bool) -> Tuple[P, Dict[str, P]]:
+    """(x's spec, the layer params' specs) that `moe_ffn_ep` takes its
+    shards in, under `rules` (`LM_RULES` adapted to the mesh): `repro`'s
+    `in_specs`. The output has x's spec; aux is replicated."""
+    dp = _dp_axes(rules) or None
+    w_spec = P(rules.get("experts"), dp, None)
+    specs = {"router": P(None, None), "w_gate": w_spec, "w_up": w_spec, "w_down": w_spec}
+    if has_shared:
+        specs.update({k: P(dp, None) for k in _SHARED})
+    return P(dp, rules.get("seq"), None), specs
+
+
+class _AllToAll(torch.autograd.Function):
+    """`all_to_all_single` over `group` (equal chunks of dim 0) forward; the
+    same exchange of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = torch.empty_like(grad)
+        dist.all_to_all_single(out, grad.contiguous(), group=ctx.group)
+        return out, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over `group` forward; the sum of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity forward; the gradient summed over `groups` backward."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        for g in ctx.groups:
+            dist.all_reduce(grad, group=g)
+        return grad, None
+
+
+class _GatherDim(torch.autograd.Function):
+    """The tiled all_gather of `t` along `dim` over `group` forward; the
+    reduce-scatter (sum) of the gradient backward. The gather lands in a
+    new buffer n times `t`'s size, so `_Exchange.gather_dp` takes it only
+    over a group of more than one rank."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = dist.get_world_size(group)
+        out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))  # gloo's layout
+        dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+        shape = list(t.shape)
+        shape[dim] *= n
+        return out.view((n,) + tuple(t.shape)).movedim(0, dim).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = dist.get_world_size(ctx.group)
+        shape = list(grad.shape)
+        shape[ctx.dim: ctx.dim + 1] = [n, shape[ctx.dim] // n]
+        parts = grad.reshape(shape).movedim(ctx.dim, 0).contiguous()
+        out = grad.new_empty(parts.shape[1:])
+        dist.reduce_scatter_tensor(out, parts.reshape((-1,) + tuple(parts.shape[2:])),
+                                   group=ctx.group)
+        return out, None, None
+
+
+class _Exchange:
+    """The collectives of one call: over the "model" group (`ep`), the dp
+    groups (major to minor) and any mesh dim by name, or none at all
+    without a mesh."""
+
+    def __init__(self, mesh, rules):
+        self.mesh = mesh
+        if mesh is None:
+            self.n_groups, self.names, self.dp, self.dp_axes = 1, (), (), ()
+            return
+        self.names = mesh_axis_names(mesh)
+        self.groups = {a: mesh.get_group(a) for a in self.names}
+        self.ep = self.groups[rules["experts"]]
+        self.n_groups = mesh.size(self.names.index(rules["experts"]))
+        self.dp_axes = _dp_axes(rules)
+        self.dp = tuple(self.groups[a] for a in self.dp_axes)
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """Chunk i of dim 0 to group rank i; the chunks received stacked in
+        source order (`lax.all_to_all(..., 0, 0, tiled=False)`)."""
+        if self.mesh is None:
+            return t
+        return _AllToAll.apply(t, self.ep)
+
+    def gather_dp(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """`lax.all_gather(w, dp_axes, axis=dim, tiled=True)`: the minor
+        axis first, so that the major one ends outermost. Over a dp group
+        of one rank the gather is `w` itself, as it costs nothing in
+        `repro`: no second copy of the layer's weights."""
+        if self.mesh is None:
+            return w
+        for g in reversed(self.dp):
+            if dist.get_world_size(g) > 1:
+                w = _GatherDim.apply(w, dim, g)
+        return w
+
+    def pmean(self, t: torch.Tensor) -> torch.Tensor:
+        """`lax.pmean` over the dp axes and the expert axis: every rank of
+        this mesh."""
+        if self.mesh is None:
+            return t
+        for a in self.names:
+            t = _AllReduce.apply(t, self.groups[a])
+        return t / self.mesh.size()
+
+    def replicated(self, t: torch.Tensor, sharded_over: Sequence[str] = ()) -> torch.Tensor:
+        """`t`, whose spec names only the mesh dims `sharded_over`: its
+        gradient sums over every other mesh dim, as shard_map's transpose
+        sums an input's over the dims its spec leaves out."""
+        if self.mesh is None:
+            return t
+        rest = tuple(self.groups[a] for a in self.names if a not in sharded_over)
+        return _SumGrad.apply(t, rest) if rest else t
+
+
+def moe_ffn_ep(x, layer_params, cfg, stats=None, *,
+               mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE FFN. x: [B, S, D], this rank's block of the
+    global x under `ep_specs`; `layer_params` this rank's blocks of the
+    layer's weights. Returns (this rank's block of out, aux).
+
+    `mesh`: a `DeviceMesh` with a "model" dim (and any dp dims of
+    `LM_RULES`' "batch"); None computes one group with no collective. A
+    mesh without a "model" dim takes `moe_ffn`, as `repro` does. `stats`,
+    if a dict, gets appended the entries this rank dropped at each capacity
+    stage, under "dropped_pair" (its send buffers' C_pair) and
+    "dropped_expert" (its experts' C_e, of the entries it received)
+    (tensors, read by the caller when it likes): a record, which changes
+    no output."""
+    rules = adapt_rules(LM_RULES, mesh) if mesh is not None else {}
+    if mesh is not None and rules["experts"] is None:
+        return moe_lib.moe_ffn(x, layer_params, cfg, stats)
+    ex = _Exchange(mesh, rules)
+    n_groups = ex.n_groups
     E, K, cf = cfg.n_experts, cfg.top_k, cfg.capacity_factor
+    if E % n_groups:
+        raise ValueError(f"{E} experts over {n_groups} expert groups")
     E_loc = E // n_groups
     B, S, D = x.shape
     T = B * S
     xt = x.reshape(T, D)
 
-    # ---- routing ----
-    gate, eidx, aux = route(xt, layer_params["router"], E, K)
+    # ---- routing (router weights replicated) ----
+    gate, eidx, aux = route(xt, ex.replicated(layer_params["router"]), E, K)
+    aux = ex.pmean(aux)
 
     # ---- stage 1: entries -> expert-group send buffers ----
     flat_e = eidx.reshape(-1)  # [T*K]
@@ -79,8 +273,8 @@ def moe_ffn_ep(x, layer_params, cfg, stats=None) -> Tuple[torch.Tensor, torch.Te
     send_e = send_e.index_put((torch.clamp(slot, max=n_groups * C_pair),),
                               flat_e - group * E_loc)[:n_groups * C_pair]
 
-    # ---- the all_to_all to the expert owners: one group, the identity ----
-    recv_x, recv_e = send_x, send_e
+    # ---- all_to_all to the expert owners ----
+    recv_x, recv_e = ex.all_to_all(send_x), ex.all_to_all(send_e)
 
     # ---- stage 2: group received tokens by local expert ----
     R = n_groups * C_pair
@@ -94,21 +288,24 @@ def moe_ffn_ep(x, layer_params, cfg, stats=None) -> Tuple[torch.Tensor, torch.Te
 
     buf = scatter_rows(E_loc * C_e, slot2, recv_x).reshape(E_loc, C_e, D)
 
-    # ---- expert FFN (the weights' all_gather over the dp axes: identity) ----
-    out_buf = expert_ffn(buf, layer_params["w_gate"], layer_params["w_up"],
-                         layer_params["w_down"]).reshape(E_loc * C_e, D)
+    # ---- expert FFN; weights FSDP-gathered over the dp axes ----
+    w_gate, w_up, w_down = (ex.gather_dp(layer_params[k], 1)
+                            for k in ("w_gate", "w_up", "w_down"))
+    out_buf = expert_ffn(buf, w_gate, w_up, w_down).reshape(E_loc * C_e, D)
 
-    # ---- inverse: buffer -> recv layout -> (identity) a2a back -> combine ----
+    # ---- inverse: buffer -> recv layout -> a2a back -> combine ----
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     back = torch.where((slot2 < E_loc * C_e)[:, None],
                        out_buf[torch.clamp(slot2, 0, E_loc * C_e - 1)], zero)  # [R, D]
-    ret = back
+    ret = ex.all_to_all(back)
     entry_out = torch.where(kept[:, None],
                             ret[torch.clamp(slot, 0, n_groups * C_pair - 1)], zero)  # [T*K, D]
     out = torch.sum(entry_out.reshape(T, K, D) * gate[..., None].to(x.dtype), dim=1)
 
     if "shared_gate" in layer_params:
-        sg, su, sd = (layer_params[k] for k in ("shared_gate", "shared_up", "shared_down"))
+        # shared weights FSDP-sharded on dim 0 over the dp axes
+        sg, su, sd = (ex.gather_dp(ex.replicated(layer_params[k], ex.dp_axes), 0)
+                      for k in _SHARED)
         hg = F.silu(torch.matmul(xt, sg).float()).to(x.dtype)
         out = out + torch.matmul(hg * torch.matmul(xt, su), sd)
 

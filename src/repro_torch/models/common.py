@@ -1,32 +1,71 @@
 """Parameter-definition machinery (port of `repro.models.common`).
 
 A model declares its parameters once as a nested dict of `ParamDef`s
-(shape + dtype + init). `init_params` turns that tree into real tensors;
+(shape + dtype + init + logical axes). From that one declaration come:
+  - real tensors (`init_params`);
+  - abstract ones (`abstract_params`: tensors on the "meta" device, which
+    hold a shape and a dtype and no storage, as `jax.ShapeDtypeStruct`);
+  - the layout of each leaf over a mesh (`param_pspecs`: the logical axes
+    through a rule table of `distributed/sharding`, in the training
+    layout or, where a def has `serve_axes`, the serving one).
 `from_numpy_tree` / `to_numpy_tree` carry a parameter tree between this
 package and `repro` (whose trees convert to numpy with
-`jax.tree.map(np.asarray, params)`). The logical sharding axes of
-`repro`'s `ParamDef` are dropped: the port runs on one device.
+`jax.tree.map(np.asarray, params)`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import pspec
+
+Axes = Tuple[Optional[str], ...]
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
+    """A parameter's shape, dtype, init and logical axes: `axes` (one per
+    dim) for training (FSDP-style), `serve_axes` for serving (TP-style)
+    where it differs. Both are keywords, and `axes` has no default."""
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.float32
     init: str = "fan_in"  # "fan_in" | "normal" | "zeros" | "ones" | "embed"
     scale: float = 1.0
+    axes: Axes = dataclasses.field(kw_only=True)
+    serve_axes: Optional[Axes] = dataclasses.field(default=None, kw_only=True)
+
+    def __post_init__(self):
+        for axes in (self.axes, self.serve_axes):
+            if axes is not None and len(axes) != len(self.shape):
+                raise ValueError(f"axes {axes} for a tensor of shape {self.shape}")
+
+    def mode_axes(self, serve: bool) -> Axes:
+        return self.serve_axes if (serve and self.serve_axes is not None) else self.axes
 
 
 def is_def(x) -> bool:
     return isinstance(x, ParamDef)
+
+
+def _map_defs(fn, defs):
+    if is_def(defs):
+        return fn(defs)
+    return {k: _map_defs(fn, defs[k]) for k in sorted(defs)}
+
+
+def abstract_params(defs):
+    """ParamDef tree -> tensors on the "meta" device (shape and dtype, no
+    storage): `repro`'s ShapeDtypeStruct tree."""
+    return _map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), defs)
+
+
+def param_pspecs(defs, rules, serve: bool = False):
+    """ParamDef tree -> PartitionSpec tree (training or serving layout)."""
+    return _map_defs(lambda d: pspec(d.mode_axes(serve), rules), defs)
 
 
 def _leaves(defs):
@@ -63,6 +102,10 @@ def init_params(defs, generator: torch.Generator, device) -> Dict[str, Any]:
 
 def param_count(defs) -> int:
     return int(sum(np.prod(d.shape) for d in _leaves(defs)))
+
+
+def param_bytes(defs) -> int:
+    return int(sum(np.prod(d.shape) * d.dtype.itemsize for d in _leaves(defs)))
 
 
 def _is_bfloat16(arr: np.ndarray) -> bool:

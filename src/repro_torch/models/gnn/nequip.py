@@ -53,25 +53,27 @@ def param_defs(cfg: GNNConfig, d_feat: Optional[int] = None, n_classes: int = 1)
     C, L, R = cfg.d_hidden, cfg.n_layers, cfg.n_rbf
     defs: Dict = {}
     if d_feat:  # Cora/products-style continuous node features -> scalars
-        defs["feat_proj"] = ParamDef((d_feat, C), torch.float32, "fan_in")
+        defs["feat_proj"] = ParamDef((d_feat, C), torch.float32, "fan_in", axes=(None, None))
     else:
-        defs["species"] = ParamDef((cfg.n_species, C), torch.float32, "embed")
+        defs["species"] = ParamDef((cfg.n_species, C), torch.float32, "embed", axes=(None, None))
     defs["layers"] = {
-        "rad_w1": ParamDef((L, R, RAD_HIDDEN), torch.float32, "fan_in"),
-        "rad_b1": ParamDef((L, RAD_HIDDEN), torch.float32, "zeros"),
-        "rad_w2": ParamDef((L, RAD_HIDDEN, N_PATHS * C), torch.float32, "fan_in"),
+        "rad_w1": ParamDef((L, R, RAD_HIDDEN), torch.float32, "fan_in",
+                           axes=("layers", "rbf", None)),
+        "rad_b1": ParamDef((L, RAD_HIDDEN), torch.float32, "zeros", axes=("layers", None)),
+        "rad_w2": ParamDef((L, RAD_HIDDEN, N_PATHS * C), torch.float32, "fan_in",
+                           axes=("layers", None, None)),
         # per-l self interactions (channel mixing) + residual weight
-        "self_0": ParamDef((L, C, C), torch.float32, "fan_in"),
-        "self_1": ParamDef((L, C, C), torch.float32, "fan_in"),
-        "self_2": ParamDef((L, C, C), torch.float32, "fan_in"),
+        "self_0": ParamDef((L, C, C), torch.float32, "fan_in", axes=("layers", None, None)),
+        "self_1": ParamDef((L, C, C), torch.float32, "fan_in", axes=("layers", None, None)),
+        "self_2": ParamDef((L, C, C), torch.float32, "fan_in", axes=("layers", None, None)),
         # gates for l=1,2 from scalar channels
-        "gate_w": ParamDef((L, C, 2 * C), torch.float32, "fan_in"),
-        "gate_b": ParamDef((L, 2 * C), torch.float32, "zeros"),
+        "gate_w": ParamDef((L, C, 2 * C), torch.float32, "fan_in", axes=("layers", None, None)),
+        "gate_b": ParamDef((L, 2 * C), torch.float32, "zeros", axes=("layers", None)),
     }
-    defs["out_w1"] = ParamDef((C, C), torch.float32, "fan_in")
-    defs["out_b1"] = ParamDef((C,), torch.float32, "zeros")
-    defs["out_w2"] = ParamDef((C, n_classes), torch.float32, "fan_in")
-    defs["out_b2"] = ParamDef((n_classes,), torch.float32, "zeros")
+    defs["out_w1"] = ParamDef((C, C), torch.float32, "fan_in", axes=(None, None))
+    defs["out_b1"] = ParamDef((C,), torch.float32, "zeros", axes=(None,))
+    defs["out_w2"] = ParamDef((C, n_classes), torch.float32, "fan_in", axes=(None, None))
+    defs["out_b2"] = ParamDef((n_classes,), torch.float32, "zeros", axes=(None,))
     return defs
 
 

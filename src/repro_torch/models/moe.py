@@ -28,17 +28,26 @@ from repro_torch.models.layers import swiglu
 def moe_param_defs(cfg, n_moe_layers: int, dtype) -> dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     L = n_moe_layers
+    expert_axes = ("layers", "experts", "expert_dp", None)
+    expert_serve_axes = ("layers", "experts", "moe_in", None)
     defs = {
-        "router": ParamDef((L, d, e), dtype, "fan_in"),
-        "w_gate": ParamDef((L, e, d, f), dtype, "fan_in"),
-        "w_up": ParamDef((L, e, d, f), dtype, "fan_in"),
-        "w_down": ParamDef((L, e, f, d), dtype, "fan_in"),
+        "router": ParamDef((L, d, e), dtype, "fan_in", axes=("layers", None, None)),
+        "w_gate": ParamDef((L, e, d, f), dtype, "fan_in", axes=expert_axes,
+                           serve_axes=expert_serve_axes),
+        "w_up": ParamDef((L, e, d, f), dtype, "fan_in", axes=expert_axes,
+                         serve_axes=expert_serve_axes),
+        "w_down": ParamDef((L, e, f, d), dtype, "fan_in", axes=expert_axes,
+                           serve_axes=expert_serve_axes),
     }
     if cfg.n_shared_experts:
         s = cfg.n_shared_experts * f
-        defs["shared_gate"] = ParamDef((L, d, s), dtype, "fan_in")
-        defs["shared_up"] = ParamDef((L, d, s), dtype, "fan_in")
-        defs["shared_down"] = ParamDef((L, s, d), dtype, "fan_in")
+        shared_axes = ("layers", "expert_dp", None)
+        defs["shared_gate"] = ParamDef((L, d, s), dtype, "fan_in", axes=shared_axes,
+                                       serve_axes=("layers", None, "ff"))
+        defs["shared_up"] = ParamDef((L, d, s), dtype, "fan_in", axes=shared_axes,
+                                     serve_axes=("layers", None, "ff"))
+        defs["shared_down"] = ParamDef((L, s, d), dtype, "fan_in", axes=shared_axes,
+                                       serve_axes=("layers", "tp_in", None))
     return defs
 
 

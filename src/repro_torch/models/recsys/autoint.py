@@ -41,11 +41,11 @@ def param_defs(cfg: RecSysConfig) -> Dict:
     ins, d_out = _dims(cfg)
     defs: Dict = {"table": unified_table_def(cfg)}
     for l, d_in in enumerate(ins):
-        defs[f"attn{l}"] = {k: ParamDef((d_in, d_out), torch.float32, "fan_in")
+        defs[f"attn{l}"] = {k: ParamDef((d_in, d_out), torch.float32, "fan_in", axes=(None, None))
                             for k in ("wq", "wk", "wv", "w_res")}
     F = len(cfg.fields)
-    defs["w_out"] = ParamDef((F * d_out, 1), torch.float32, "fan_in")
-    defs["b_out"] = ParamDef((1,), torch.float32, "zeros")
+    defs["w_out"] = ParamDef((F * d_out, 1), torch.float32, "fan_in", axes=(None, None))
+    defs["b_out"] = ParamDef((1,), torch.float32, "zeros", axes=(None,))
     return defs
 
 

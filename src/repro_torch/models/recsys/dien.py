@@ -28,9 +28,9 @@ from repro_torch.models.recsys.rec_layers import bce_with_logits, mlp_apply, mlp
 
 def _gru_defs(name: str, d_in: int, g: int) -> Dict:
     return {
-        f"{name}_wx": ParamDef((d_in, 3 * g), torch.float32, "fan_in"),
-        f"{name}_wh": ParamDef((g, 3 * g), torch.float32, "fan_in"),
-        f"{name}_b": ParamDef((3 * g,), torch.float32, "zeros"),
+        f"{name}_wx": ParamDef((d_in, 3 * g), torch.float32, "fan_in", axes=(None, None)),
+        f"{name}_wh": ParamDef((g, 3 * g), torch.float32, "fan_in", axes=(None, None)),
+        f"{name}_b": ParamDef((3 * g,), torch.float32, "zeros", axes=(None,)),
     }
 
 
@@ -41,7 +41,7 @@ def param_defs(cfg: RecSysConfig) -> Dict:
     defs: Dict = {"tables": named_table_defs(cfg)}
     defs.update(_gru_defs("gru1", du, g))
     defs.update(_gru_defs("augru", g, g))
-    defs["w_att"] = ParamDef((g, du), torch.float32, "fan_in")
+    defs["w_att"] = ParamDef((g, du), torch.float32, "fan_in", axes=(None, None))
     defs.update(mlp_defs("tower", de + du + g, cfg.mlp_dims))
     return defs
 

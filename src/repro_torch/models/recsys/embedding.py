@@ -52,7 +52,7 @@ def _pad_rows(rows: int, multiple: int = 512) -> int:
 def unified_table_def(cfg: RecSysConfig, extra_dim: int = 0) -> ParamDef:
     """[padded Σ vocab, d] with d = `extra_dim` or the config's embed_dim."""
     return ParamDef((_pad_rows(cfg.table_rows()), extra_dim or cfg.embed_dim),
-                    torch.float32, "embed")
+                    torch.float32, "embed", axes=("rows", None))
 
 
 def _take_rows(table, rows: torch.Tensor) -> torch.Tensor:
@@ -119,7 +119,7 @@ def named_table_defs(cfg: RecSysConfig) -> Dict[str, ParamDef]:
     defs = {}
     for f in cfg.owned_fields():
         d = cfg.field_dim(f)
-        defs[f.name] = ParamDef((_pad_rows(f.vocab), d), torch.float32, "embed")
+        defs[f.name] = ParamDef((_pad_rows(f.vocab), d), torch.float32, "embed", axes=("rows", None))
     return defs
 
 

@@ -29,7 +29,7 @@ def param_defs(cfg: RecSysConfig):
     return {
         "table": unified_table_def(cfg),  # [rows, k] second-order factors
         "linear": unified_table_def(cfg, extra_dim=1),  # [rows, 1] first-order
-        "bias": ParamDef((), torch.float32, "zeros"),
+        "bias": ParamDef((), torch.float32, "zeros", axes=()),
     }
 
 

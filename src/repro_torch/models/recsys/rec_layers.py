@@ -14,12 +14,12 @@ def mlp_defs(name: str, in_dim: int, dims: Tuple[int, ...], out_dim: int = 1) ->
     defs = {}
     prev = in_dim
     for i, d in enumerate(dims):
-        defs[f"{name}_w{i}"] = ParamDef((prev, d), torch.float32, "fan_in")
-        defs[f"{name}_b{i}"] = ParamDef((d,), torch.float32, "zeros")
-        defs[f"{name}_a{i}"] = ParamDef((d,), torch.float32, "zeros")  # PReLU
+        defs[f"{name}_w{i}"] = ParamDef((prev, d), torch.float32, "fan_in", axes=(None, None))
+        defs[f"{name}_b{i}"] = ParamDef((d,), torch.float32, "zeros", axes=(None,))
+        defs[f"{name}_a{i}"] = ParamDef((d,), torch.float32, "zeros", axes=(None,))  # PReLU
         prev = d
-    defs[f"{name}_wout"] = ParamDef((prev, out_dim), torch.float32, "fan_in")
-    defs[f"{name}_bout"] = ParamDef((out_dim,), torch.float32, "zeros")
+    defs[f"{name}_wout"] = ParamDef((prev, out_dim), torch.float32, "fan_in", axes=(None, None))
+    defs[f"{name}_bout"] = ParamDef((out_dim,), torch.float32, "zeros", axes=(None,))
     return defs
 
 

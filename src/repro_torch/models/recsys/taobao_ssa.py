@@ -40,17 +40,17 @@ def param_defs(cfg: RecSysConfig) -> Dict:
     d = cfg.d_attn  # 64
     L = cfg.seq_len
     defs: Dict = {"tables": named_table_defs(cfg)}
-    defs["pos"] = ParamDef((L, d), torch.float32, "normal")
+    defs["pos"] = ParamDef((L, d), torch.float32, "normal", axes=(None, None))
     for l in range(cfg.n_attn_layers):
         defs[f"enc{l}"] = {
-            "ln1": ParamDef((d,), torch.float32, "ones"),
-            "wq": ParamDef((d, d), torch.float32, "fan_in"),
-            "wk": ParamDef((d, d), torch.float32, "fan_in"),
-            "wv": ParamDef((d, d), torch.float32, "fan_in"),
-            "wo": ParamDef((d, d), torch.float32, "fan_in"),
-            "ln2": ParamDef((d,), torch.float32, "ones"),
-            "w1": ParamDef((d, 4 * d), torch.float32, "fan_in"),
-            "w2": ParamDef((4 * d, d), torch.float32, "fan_in"),
+            "ln1": ParamDef((d,), torch.float32, "ones", axes=(None,)),
+            "wq": ParamDef((d, d), torch.float32, "fan_in", axes=(None, None)),
+            "wk": ParamDef((d, d), torch.float32, "fan_in", axes=(None, None)),
+            "wv": ParamDef((d, d), torch.float32, "fan_in", axes=(None, None)),
+            "wo": ParamDef((d, d), torch.float32, "fan_in", axes=(None, None)),
+            "ln2": ParamDef((d,), torch.float32, "ones", axes=(None,)),
+            "w1": ParamDef((d, 4 * d), torch.float32, "fan_in", axes=(None, None)),
+            "w2": ParamDef((4 * d, d), torch.float32, "fan_in", axes=(None, None)),
         }
     user_dim = cfg.field_dim([f for f in cfg.fields if f.name == "user"][0])
     tower_in = user_dim + d + d + d

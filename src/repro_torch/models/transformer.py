@@ -9,10 +9,15 @@ stacked [L, ...] layout, so weights carry across unchanged; `repro`'s
   prefill(params, tokens, cfg)             -> (last_logits, kv_cache)
   decode(params, cache, token, pos, cfg)   -> (logits, new_cache)
 
-`repro`'s sharding (`constrain`, the rules argument, the ParamDefs' logical
-axes) has no counterpart on one device. `cfg.remat` recomputes each layer
-in the backward (`torch.utils.checkpoint`, non-reentrant), as `repro`'s
-`jax.checkpoint` of its scan body: memory, not numbers. `decode` is
+The ParamDefs carry `repro`'s logical axes (`models/common.param_pspecs`).
+`trunk`'s `mesh` reaches the MoE layers' expert-parallel dispatch, as
+`repro`'s rules argument does; `repro`'s `constrain` calls, which GSPMD
+propagates over the rest of the forward, have no counterpart yet, so
+`trunk` refuses a mesh of more than one rank: its attention, RoPE and loss
+would see only this rank's block of the tokens.
+`cfg.remat` recomputes each layer in the backward (`torch.utils.checkpoint`,
+non-reentrant), as `repro`'s `jax.checkpoint` of its scan body: memory,
+not numbers. `decode` is
 functional as `repro`'s: it copies the caches once and writes the new
 token's keys and values into the copy.
 """
@@ -38,9 +43,10 @@ from repro_torch.models.layers import (
     swiglu,
 )
 
-# `pad_vocab` rounds V up to a multiple of `repro`'s full mesh (512 chips),
-# which it shards the tables over; the port keeps the padded shape.
-_PAD_VOCAB_TO = 512
+# `repro`'s full mesh, 512 chips (also divisible into the 256-chip single
+# pod): a weight is FSDP-sharded on its first dim that this divides, and
+# `pad_vocab` rounds V up to a multiple of it.
+_FSDP_WAYS = 512
 
 
 def _dtype(cfg: LMConfig) -> torch.dtype:
@@ -83,44 +89,65 @@ def _moe_layout(cfg: LMConfig) -> Tuple[int, int, int]:
 # ---------------------------------------------------------------------------
 
 
+def _fsdp_axes(shape, candidates):
+    """Put 'fsdp' on the first candidate dim divisible by the full mesh
+    (a sharded dim must divide exactly); replicate if none fits."""
+    axes = [None] * len(shape)
+    for dim in candidates:
+        if shape[dim] % _FSDP_WAYS == 0:
+            axes[dim] = "fsdp"
+            break
+    return tuple(axes)
+
+
+def _wdef(shape, dt, serve_axes):
+    """A stacked [L, ...] weight: FSDP on dim 1 or 2 in training, TP-style
+    `serve_axes` in serving."""
+    return ParamDef(shape, dt, "fan_in", axes=("layers",) + _fsdp_axes(shape[1:], (0, 1)),
+                    serve_axes=serve_axes)
+
+
 def param_defs(cfg: LMConfig) -> Dict:
     dt = _dtype(cfg)
     D, H, K = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     L, V, F_ = cfg.n_layers, cfg.vocab_size, cfg.d_ff
+    row_parallel = ("layers", "tp_in", None)
 
     attn = {
-        "attn_norm": ParamDef((L, D), dt, "ones"),
-        "wq": ParamDef((L, D, H * hd), dt, "fan_in"),
-        "wk": ParamDef((L, D, K * hd), dt, "fan_in"),
-        "wv": ParamDef((L, D, K * hd), dt, "fan_in"),
-        "wo": ParamDef((L, H * hd, D), dt, "fan_in"),
+        "attn_norm": ParamDef((L, D), dt, "ones", axes=("layers", None)),
+        "wq": _wdef((L, D, H * hd), dt, row_parallel),
+        "wk": _wdef((L, D, K * hd), dt, row_parallel),
+        "wv": _wdef((L, D, K * hd), dt, row_parallel),
+        "wo": _wdef((L, H * hd, D), dt, row_parallel),
     }
     if cfg.use_bias:
-        attn["bq"] = ParamDef((L, H * hd), dt, "zeros")
-        attn["bk"] = ParamDef((L, K * hd), dt, "zeros")
-        attn["bv"] = ParamDef((L, K * hd), dt, "zeros")
+        attn["bq"] = ParamDef((L, H * hd), dt, "zeros", axes=("layers", None))
+        attn["bk"] = ParamDef((L, K * hd), dt, "zeros", axes=("layers", None))
+        attn["bv"] = ParamDef((L, K * hd), dt, "zeros", axes=("layers", None))
     if not cfg.parallel_block:
-        attn["ffn_norm"] = ParamDef((L, D), dt, "ones")
+        attn["ffn_norm"] = ParamDef((L, D), dt, "ones", axes=("layers", None))
 
     n_super, n_dense, n_moe = _moe_layout(cfg)
     defs: Dict = {"attn": attn}
     if n_dense:
         Ld = n_super * n_dense if cfg.n_experts == 0 else n_super
         defs["ffn"] = {
-            "w_gate": ParamDef((Ld, D, F_), dt, "fan_in"),
-            "w_up": ParamDef((Ld, D, F_), dt, "fan_in"),
-            "w_down": ParamDef((Ld, F_, D), dt, "fan_in"),
+            "w_gate": _wdef((Ld, D, F_), dt, ("layers", None, "ff")),
+            "w_up": _wdef((Ld, D, F_), dt, ("layers", None, "ff")),
+            "w_down": _wdef((Ld, F_, D), dt, row_parallel),
         }
     if n_moe:
         defs["moe"] = moe_lib.moe_param_defs(cfg, n_super, dt)
 
     if cfg.pad_vocab:
-        V = -(-V // _PAD_VOCAB_TO) * _PAD_VOCAB_TO
-    defs["embed"] = ParamDef((V, D), dt, "embed")
-    defs["final_norm"] = ParamDef((D,), dt, "ones")
+        V = -(-V // _FSDP_WAYS) * _FSDP_WAYS
+    emb_axes = _fsdp_axes((V, D), (0, 1))
+    defs["embed"] = ParamDef((V, D), dt, "embed", axes=emb_axes, serve_axes=("vocab", None))
+    defs["final_norm"] = ParamDef((D,), dt, "ones", axes=(None,))
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((V, D), dt, "embed")
+        defs["lm_head"] = ParamDef((V, D), dt, "embed", axes=emb_axes,
+                                   serve_axes=("vocab", None))
     return defs
 
 
@@ -190,9 +217,10 @@ def _ffn_dense(x, p):
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
-def _layer(x, attn_p, ffn_p, moe_p, cfg: LMConfig, decode_state=None, stats=None):
+def _layer(x, attn_p, ffn_p, moe_p, cfg: LMConfig, decode_state=None, stats=None, mesh=None):
     """One transformer layer. decode_state: None | (k_cache, v_cache, pos).
-    `stats` collects the MoE dispatch's record (see `prefill`)."""
+    `stats` collects the MoE dispatch's record (see `prefill`); `mesh`
+    reaches the expert-parallel dispatch (see `trunk`)."""
     h = apply_norm(x, attn_p["attn_norm"], cfg.norm_type)
     if decode_state is None:
         attn_out, kv = _attention_train(h, attn_p, cfg)
@@ -212,7 +240,7 @@ def _layer(x, attn_p, ffn_p, moe_p, cfg: LMConfig, decode_state=None, stats=None
             # decode (tiny token counts) takes the plain dispatcher; train
             # and prefill the expert-parallel one, as `repro`
             if cfg.moe_impl == "ep" and decode_state is None:
-                ffn_out, aux = moe_ffn_ep(h2, moe_p, cfg, stats)
+                ffn_out, aux = moe_ffn_ep(h2, moe_p, cfg, stats, mesh=mesh)
             else:
                 ffn_out, aux = moe_lib.moe_ffn(h2, moe_p, cfg, stats)
         else:
@@ -246,17 +274,25 @@ def _layers(params, cfg: LMConfig) -> Iterator[Tuple[Dict, Dict, Dict]]:
 # ---------------------------------------------------------------------------
 
 
-def trunk(params, tokens, cfg: LMConfig, stats=None):
-    """tokens [B,S] -> hidden [B,S,D], aux loss, kv caches [L,B,S,K,hd]x2."""
+def trunk(params, tokens, cfg: LMConfig, stats=None, mesh=None):
+    """tokens [B,S] -> hidden [B,S,D], aux loss, kv caches [L,B,S,K,hd]x2.
+    `mesh` (a DeviceMesh), where given, reaches every MoE layer's
+    `moe_ffn_ep`, as `repro`'s rules do; None is the one-group path. A
+    mesh of more than one rank is refused until the whole forward is
+    partitioned (module docstring)."""
+    if mesh is not None and mesh.size() > 1:
+        raise ValueError(f"trunk runs on a mesh of one rank; this one has {mesh.size()} "
+                         f"({dict(zip(mesh.mesh_dim_names, mesh.shape))}): the forward "
+                         "outside the MoE dispatch is not partitioned across ranks")
     x = _take_rows(params["embed"], tokens).to(_dtype(cfg))
     remat = cfg.remat and cfg.remat_policy != "none" and torch.is_grad_enabled()
     ks, vs, aux = [], [], torch.zeros((), dtype=torch.float32, device=x.device)
     for attn_p, ffn_p, moe_p in _layers(params, cfg):
         if remat:  # `repro`'s "dots" policy saves the matmuls; both recompute the rest
-            x, (k, v), a = checkpoint(_layer, x, attn_p, ffn_p, moe_p, cfg, None, stats,
+            x, (k, v), a = checkpoint(_layer, x, attn_p, ffn_p, moe_p, cfg, None, stats, mesh,
                                       use_reentrant=False)
         else:
-            x, (k, v), a = _layer(x, attn_p, ffn_p, moe_p, cfg, None, stats)
+            x, (k, v), a = _layer(x, attn_p, ffn_p, moe_p, cfg, None, stats, mesh)
         ks.append(k)
         vs.append(v)
         aux = aux + a
@@ -313,20 +349,20 @@ def chunked_cross_entropy(x, table, labels, n_chunks: int = 8):
     return torch.mean(ce)
 
 
-def loss(params, batch, cfg: LMConfig) -> Tuple[torch.Tensor, Dict]:
+def loss(params, batch, cfg: LMConfig, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """Next-token CE + MoE load-balance aux."""
-    x, aux, _ = trunk(params, batch["tokens"], cfg)
+    x, aux, _ = trunk(params, batch["tokens"], cfg, mesh=mesh)
     ce = chunked_cross_entropy(x, _output_table(params), batch["labels"])
     total = ce + 0.01 * aux
     return total, {"ce": ce, "aux": aux}
 
 
-def prefill(params, tokens, cfg: LMConfig, stats=None):
+def prefill(params, tokens, cfg: LMConfig, stats=None, mesh=None):
     """Full-sequence forward; returns last-position logits + KV caches.
     `stats`, a dict, collects each MoE layer's dispatch record: the entries
     dropped at `moe_ffn_ep`'s two capacity stages, or `moe_ffn`'s under
     `moe_impl="gspmd"` (see those): a record, not an output."""
-    x, _, (k_all, v_all) = trunk(params, tokens, cfg, stats)
+    x, _, (k_all, v_all) = trunk(params, tokens, cfg, stats, mesh)
     logits = _logits(x[:, -1:, :], _output_table(params))
     return logits[:, 0], (k_all, v_all)
 

@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import PartitionSpec, distribute_one, spec_of
 from repro_torch.models.common import numpy_from_tensor, tensor_from_numpy
 
 _CHUNK_BYTES = 256 * 2**20
@@ -306,14 +307,44 @@ def _shape_dtype(leaf) -> Tuple[List[int], str]:
     return list(arr.shape), str(arr.dtype)
 
 
-def restore(ckpt_dir, step: int, like: Any, device=None) -> Any:
+def _layout_leaves(shardings, like) -> List[Any]:
+    """The leaf of `shardings` at each leaf of `like`, in `flatten` order:
+    `shardings` has `like`'s structure down to its leaves, and each of its
+    leaves is a PartitionSpec, a (mesh, placements) pair or None."""
+    if isinstance(like, dict):
+        return [s for k in sorted(like) for s in _layout_leaves(shardings[k], like[k])]
+    if isinstance(like, (tuple, list)):
+        return [s for sub, ref in zip(shardings, like) for s in _layout_leaves(sub, ref)]
+    return [] if like is None else [shardings]
+
+
+def _laid_out(tensor: torch.Tensor, layout, mesh):
+    """`tensor` as a `DTensor` under `layout` (a spec on `mesh`, or a
+    (mesh, placements) pair), or as it is where `layout` is None."""
+    if layout is None:
+        return tensor
+    if isinstance(layout, PartitionSpec):
+        if mesh is None:
+            raise ValueError("a PartitionSpec layout needs restore's `mesh`")
+        return distribute_one(tensor, layout, mesh)
+    leaf_mesh, placements = layout
+    return distribute_one(tensor, spec_of(placements, leaf_mesh), leaf_mesh)
+
+
+def restore(ckpt_dir, step: int, like: Any, device=None, shardings=None, mesh=None) -> Any:
     """Step `step` in `like`'s structure, each leaf a tensor of the dtype
     it was saved in (a "bfloat16" leaf, which numpy loads as '<V2' bytes, a
     `torch.bfloat16` tensor of the same bits), on `device` if given, else on the device of its `like`
     leaf (the CPU where that leaf is not a tensor). Refuses a checkpoint
     whose leaf count is not `like`'s, and one with a leaf whose shape or
     dtype is not its `like` leaf's, naming the leaf's path (`repro` checks
-    the count only, and restores a leaf of another shape as it was saved)."""
+    the count only, and restores a leaf of another shape as it was saved).
+
+    Reshard-on-restore: `shardings`, a tree of `like`'s structure whose
+    leaves are PartitionSpecs (on `mesh`) or (DeviceMesh, placements)
+    pairs, makes each leaf a `DTensor` holding this rank's block on the
+    mesh's device (`distributed/sharding.distribute_one`); the same
+    checkpoint restores onto any mesh whose dims divide its leaves."""
     path = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = unpackb((path / "manifest.msgpack").read_bytes())
     leaves_like, _ = flatten(like)
@@ -327,10 +358,16 @@ def restore(ckpt_dir, step: int, like: Any, device=None) -> Any:
                 f"checkpoint leaf {name!r} in {path} is {m['dtype']} {tuple(m['shape'])}, "
                 f"the target's {dtype} {tuple(shape)}")
 
+    layouts = ([None] * len(leaves_like) if shardings is None
+               else _layout_leaves(shardings, like))
     out = []
-    for i, (m, ref) in enumerate(zip(manifest["leaves"], leaves_like)):
+    for i, (m, ref, layout) in enumerate(zip(manifest["leaves"], leaves_like, layouts)):
         chunks = [np.load(path / f"leaf_{i:05d}_{c:04d}.npy") for c in range(m["n_chunks"])]
         arr = chunks[0] if len(chunks) == 1 else np.concatenate(chunks, axis=0)
+        tensor = tensor_from_numpy(arr)  # a writable copy; '<V2' as bfloat16
+        if layout is not None:
+            out.append(_laid_out(tensor, layout, mesh))
+            continue
         dev = device if device is not None else (ref.device if torch.is_tensor(ref) else "cpu")
-        out.append(tensor_from_numpy(arr).to(dev))  # a writable copy; '<V2' as bfloat16
+        out.append(tensor.to(dev))
     return unflatten(like, out)

@@ -15,6 +15,10 @@ as `jnp.round`). `repro` maps a leaf of rank 3 or more over its first axis
 (`lax.map`) to save memory; every element's arithmetic is the same either
 way, so the port updates the whole leaf at once. As `repro`'s, it has no
 last axis to block a 0-d leaf along (FM's bias) and raises there.
+
+`abstract_state` and `state_pspecs` are the state's shapes and layout for
+specs and sizes without memory: `init` on "meta" tensors, and the params'
+PartitionSpecs carried over to each moment.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import PartitionSpec as P
 from repro_torch.models.common import float_tree, tree_leaves, tree_map
 
 
@@ -176,3 +181,43 @@ def adam8bit(
 
 def get_optimizer(name: str, lr: float = 1e-4, **kw) -> Optimizer:
     return {"sgd": sgd, "adamw": adamw, "adam8bit": adam8bit}[name](lr, **kw)
+
+
+# ---------------------------------------------------------------------------
+# State shape/sharding views (for specs and sizes without memory)
+# ---------------------------------------------------------------------------
+
+
+def abstract_state(opt_name: str, abstract_params) -> Any:
+    """The state `init` makes, as "meta" tensors (shape and dtype, no
+    storage), from params that may themselves be "meta" tensors
+    (`models/common.abstract_params`)."""
+    return get_optimizer(opt_name).init(abstract_params)
+
+
+def state_pspecs(opt_name: str, params_pspecs, abstract_params=None) -> Any:
+    """PartitionSpecs for the optimizer state given param pspecs.
+
+    Moments inherit the param sharding. Adam8bit's [..., n_blocks] scales
+    keep every leading-dim sharding and un-shard only the blocked LAST
+    axis — `abstract_params` supplies tensor ranks (PartitionSpecs trim
+    trailing Nones, so rank is not recoverable from the spec alone).
+    """
+    if opt_name == "sgd":
+        return {"mu": params_pspecs}
+    if opt_name == "adamw":
+        return {"m": params_pspecs, "v": params_pspecs, "count": P()}
+    if opt_name == "adam8bit":
+        def scale_spec(spec: P, ndim: int) -> P:
+            parts = list(spec)
+            if len(parts) == ndim and parts:
+                parts[-1] = None  # only the true last axis loses sharding
+            return P(*parts)
+
+        if abstract_params is not None:
+            qtree = tree_map(lambda spec, p: {"q": spec, "s": scale_spec(spec, p.dim())},
+                             params_pspecs, abstract_params)
+        else:
+            qtree = tree_map(lambda spec: {"q": spec, "s": spec}, params_pspecs)
+        return {"m": qtree, "v": qtree, "count": P()}
+    raise ValueError(opt_name)

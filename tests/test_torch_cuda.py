@@ -1232,3 +1232,81 @@ def test_nequip_on_card_matches_the_cpu_and_repeats_its_gradient(cuda_device, re
     for path, a, b in zip(paths, h_grads, c_grads):
         assert float((a - b).abs().max()) <= 1e-4 * max(float(a.abs().max()), 1e-30), path
     assert all(torch.equal(a, b) for a, b in zip(c_grads, card_runs[1][1]))
+
+
+# The distributed layer through NCCL at world size 1 (NCCL allows one rank
+# per card): `moe_ffn_ep` over the (1, 1) mesh runs every collective and
+# must give the one-group path's bits (output, aux, drops, every gradient;
+# deterministic algorithms on, so each backward scatter-add sums in one
+# order); `compress_allreduce_mean` on the card gives the CPU's bits.
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (NCCL runs on the card only)")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(tmp_path_factory.mktemp("nccl") / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        yield make_test_mesh("cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,K,shared,cf", [(8, 2, 0, 1.25), (8, 2, 1, 0.5), (4, 4, 0, 0.5),
+                                           (64, 8, 0, 1.25)])
+def test_moe_ffn_ep_on_nccl_at_one_rank_gives_the_one_group_bits(nccl_mesh, E, K, shared, cf,
+                                                                  dtype):
+    from repro_torch.configs.base import LMConfig
+    from repro_torch.distributed.expert_parallel import moe_ffn_ep
+    from repro_torch.models.common import init_params
+    from repro_torch.models.moe import moe_param_defs
+
+    cfg = LMConfig(name="m", family="lm", n_layers=1, d_model=256, n_heads=4, n_kv_heads=2,
+                   d_ff=512, vocab_size=64, n_experts=E, top_k=K, capacity_factor=cf,
+                   n_shared_experts=shared, dtype=dtype)
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(moe_param_defs(cfg, 1, dt), gen, "cuda")
+    x = torch.randn((4, 256, 256), generator=gen, device="cuda").to(dt)
+    cot = torch.randn(x.shape, generator=gen, device="cuda")
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mesh in (None, nccl_mesh):
+            lp = {k: v[0].detach().requires_grad_() for k, v in params.items()}
+            xi = x.detach().requires_grad_()
+            stats = {}
+            out, aux = moe_ffn_ep(xi, lp, cfg, stats, mesh=mesh)
+            leaves = [xi] + [lp[k] for k in sorted(lp)]
+            grads = torch.autograd.grad(torch.sum(out.float() * cot) + aux, leaves)
+            runs.append((out, aux, [int(v[0]) for _, v in sorted(stats.items())], grads))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (o1, a1, d1, g1), (o2, a2, d2, g2) = runs
+    assert torch.equal(o1, o2) and torch.equal(a1, a2) and d1 == d2
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    if cf < 1:
+        assert sum(d1) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300,), (4, 320), (64, 2048, 1024), (1,)])
+def test_compress_allreduce_mean_on_card_gives_the_cpus_bits(nccl_mesh, shape):
+    import torch.distributed as dist
+
+    from repro_torch.distributed import grad_compression as gc
+
+    gen = torch.Generator().manual_seed(len(shape))
+    g = torch.randn(shape, generator=gen) * 1e-3
+    r = torch.randn(shape, generator=gen) * 1e-5
+    mean, res = gc.compress_allreduce_mean(g.cuda(), r.cuda(), dist.group.WORLD)
+    cmean, cres = gc.compress_allreduce_mean(g, r)
+    assert torch.equal(mean.cpu(), cmean) and torch.equal(res.cpu(), cres)

@@ -1,0 +1,273 @@
+"""gloo ranks on the CPU for the port's multi-rank tests.
+
+`run_ranks(fn, world, tmp_path, *args)` starts `world` processes with
+`torch.multiprocessing` (the spawn method), each of which joins a gloo
+process group through a file under `tmp_path` (no port is fixed: six
+pytest-xdist workers share the machine), calls `fn(rank, world, *args)`,
+and saves what it returns. It gives back the ranks' results in rank order,
+or raises the first rank's error, or kills them all past `timeout`.
+
+The rank bodies live here too, so that a spawned rank imports torch and
+`repro_torch` only: nothing of JAX or `repro`.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+TIMEOUT_S = 120
+
+
+def _entry(rank, world, init_file, out_dir, fn, args):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    try:
+        result = fn(rank, world, *args)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, Path(out_dir) / f"rank{rank}.pt")
+
+
+def run_ranks(fn, world: int, tmp_path, *args, timeout: float = TIMEOUT_S):
+    run_dir = Path(tmp_path) / f"ranks_{fn.__name__}_{time.monotonic_ns()}"
+    run_dir.mkdir(parents=True)
+    ctx = mp.start_processes(_entry, args=(world, str(run_dir / "init"), str(run_dir), fn, args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.05, min(1.0, deadline - time.monotonic()))):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks of {fn.__name__} ran past {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+    return [torch.load(run_dir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+class Reference:
+    """A `repro` script run in a subprocess on `n_devices` forced CPU
+    devices (`XLA_FLAGS`, which the pytest process never sets), started
+    before the ranks so that the two run at once. `wait()` gives its
+    standard output; past `TIMEOUT_S` from its start it is killed."""
+
+    def __init__(self, script: str, args, n_devices: int, xla_flags: str = ""):
+        repo = Path(__file__).resolve().parents[1]
+        env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"), "PYTHONPATH": str(repo / "src"),
+               "JAX_PLATFORMS": "cpu", "HOME": os.environ.get("HOME", "/tmp"),
+               "XLA_FLAGS": f"--xla_force_host_platform_device_count={n_devices} {xla_flags}"}
+        self.deadline = time.monotonic() + TIMEOUT_S
+        self.proc = subprocess.Popen([sys.executable, "-c", script, *map(str, args)], env=env,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def wait(self) -> str:
+        try:
+            out, err = self.proc.communicate(timeout=max(0.1, self.deadline - time.monotonic()))
+        finally:
+            self.kill()
+        assert self.proc.returncode == 0, err
+        return out
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
+def to_numpy(t):
+    return t.detach().cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Rank bodies
+# ---------------------------------------------------------------------------
+
+
+def ep_rank(rank, world, mesh_shape, cases, coef):
+    """`moe_ffn_ep` on this rank's blocks of each case's global inputs
+    (`cases`: (cfg kwargs, params, x, cotangent) in numpy), then the
+    backward of Σ out·cotangent + coef·aux/n. Returns, per case, this
+    rank's mesh coordinate, out block, aux, drop counts and gradients."""
+    from repro_torch.configs.base import LMConfig
+    from repro_torch.distributed import expert_parallel as ep
+    from repro_torch.distributed.sharding import LM_RULES, adapt_rules, block_slices
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(mesh_shape, ("data", "model"), "cpu")
+    coord = tuple(mesh.get_coordinate())
+    x_spec, specs = None, None
+    results = []
+    for kw, params, x, cot in cases:
+        cfg = LMConfig(**kw)
+        x_spec, specs = ep.ep_specs(adapt_rules(LM_RULES, mesh), "shared_gate" in params)
+        blk = lambda a, spec: torch.from_numpy(  # noqa: E731
+            np.ascontiguousarray(a[block_slices(a.shape, spec, mesh, coord)]))
+        lp = {k: blk(v, specs[k]).requires_grad_() for k, v in params.items()}
+        xl = blk(x, x_spec).requires_grad_()
+        stats = {}
+        out, aux = ep.moe_ffn_ep(xl, lp, cfg, stats, mesh=mesh)
+        loss = torch.sum(out * blk(cot, x_spec)) + coef * aux / world
+        loss.backward()
+        results.append({
+            "coord": coord, "out": to_numpy(out), "aux": float(aux.detach()),
+            "dropped_pair": int(stats["dropped_pair"][0]),
+            "dropped_expert": int(stats["dropped_expert"][0]),
+            "grads": {"x": to_numpy(xl.grad), **{k: to_numpy(v.grad) for k, v in lp.items()}},
+        })
+    return results
+
+
+def compression_rank(rank, world, grads, steps):
+    """`steps` error-feedback steps of `make_compressed_allreduce` over the
+    world group; `grads[t][name]` holds every rank's gradient [world, ...]
+    of step t. Returns, per step, this rank's means and residuals, its codes
+    and the codes' all-reduced sum."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import grad_compression as gc
+
+    group = dist.group.WORLD
+    mine = lambda t: {k: torch.from_numpy(v[rank]) for k, v in grads[t].items()}  # noqa: E731
+    fn = gc.make_compressed_allreduce(group)
+    res = gc.init_residuals(mine(0))
+    out = []
+    for t in range(steps):
+        g = mine(t)
+        codes = {k: gc._q(g[k] + res[k])[0] for k in g}
+        sums = {k: c.clone() for k, c in codes.items()}
+        for c in sums.values():
+            dist.all_reduce(c, group=group)
+        means, res = fn(g, res)
+        out.append({"mean": {k: to_numpy(v) for k, v in means.items()},
+                    "res": {k: to_numpy(v) for k, v in res.items()},
+                    "codes": {k: to_numpy(v) for k, v in codes.items()},
+                    "code_sums": {k: to_numpy(v) for k, v in sums.items()}})
+    return out
+
+
+def refuse_rank(rank, world):
+    """A reduced MoE transformer's `loss` and `prefill` on each mesh of this
+    world's two ranks, (1, 2) and (2, 1): the message of each refusal, or
+    None where the call went through."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.common import init_params
+
+    cfg = dataclasses.replace(get_config("olmoe_1b_7b"), n_layers=1, d_model=32, n_heads=2,
+                              n_kv_heads=2, d_ff=16, vocab_size=64, n_experts=4, top_k=2,
+                              dtype="float32")
+    params = init_params(transformer.param_defs(cfg), torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, 64, (2, 8), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    out = {}
+    for shape in ((1, 2), (2, 1)):
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        for name, call in (("loss", lambda: transformer.loss(params, batch, cfg, mesh=mesh)),
+                           ("prefill", lambda: transformer.prefill(params, tokens, cfg,
+                                                                   mesh=mesh))):
+            try:
+                call()
+                out[(shape, name)] = None
+            except ValueError as e:
+                out[(shape, name)] = str(e)
+    return out
+
+
+def layout_rank(rank, world, cases, ckpt_dir):
+    """For each (mesh shape, spec, shape) case: `distribute` an arange
+    tensor of that shape on the mesh, and restore it from a checkpoint
+    (written by rank 0) under the spec. Returns this rank's coordinate, both
+    local blocks, and whether the DTensors gather back to the whole."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import distribute, placements
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import checkpoint
+
+    meshes = {shape: make_mesh(shape, ("data", "model"), "cpu")
+              for shape in sorted({c[0] for c in cases})}
+    tree = {f"w{i}": torch.arange(float(np.prod(shape))).reshape(shape)
+            for i, (_, _, shape) in enumerate(cases)}
+    if rank == 0:
+        checkpoint.save(ckpt_dir, 1, tree)
+    dist.barrier()
+    out = []
+    for i, (mesh_shape, spec, shape) in enumerate(cases):
+        mesh = meshes[mesh_shape]
+        name = f"w{i}"
+        dt = distribute({name: tree[name]}, {name: spec}, mesh)[name]
+        only = lambda layout: {k: (layout if k == name else None) for k in tree}  # noqa: E731
+        by_spec = checkpoint.restore(ckpt_dir, 1, tree, shardings=only(spec), mesh=mesh)[name]
+        by_placements = checkpoint.restore(
+            ckpt_dir, 1, tree, shardings=only((mesh, placements(spec, mesh))))[name]
+        out.append({
+            "coord": tuple(mesh.get_coordinate()), "local": to_numpy(dt.to_local()),
+            "restored": [to_numpy(r.to_local()) for r in (by_spec, by_placements)],
+            "placements": [tuple(dt.placements), tuple(by_spec.placements),
+                           tuple(by_placements.placements)],
+            "whole": all(bool(torch.equal(t.full_tensor(), tree[name]))
+                         for t in (dt, by_spec, by_placements)),
+        })
+    return out
+
+
+def mesh_rank(rank, world):
+    """On a world of one rank: `make_test_mesh`, `make_production_mesh`'s
+    refusal, `constrain` on a DTensor and on a plain tensor, and a reduced
+    MoE transformer's loss and gradients through the mesh against none."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.sharding import (
+        LM_RULES, P, adapt_rules, constrain, distribute_one,
+    )
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.common import init_params, tree_from_leaves, tree_leaves
+
+    mesh = make_test_mesh("cpu")
+    rules = adapt_rules(LM_RULES, mesh)
+    refused = []
+    for multi_pod in (False, True):
+        try:
+            make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        except RuntimeError as e:
+            refused.append(str(e))
+    t = torch.arange(16.0).reshape(4, 4)
+    moved = constrain(distribute_one(t, P("data"), mesh), ("fsdp", None), rules)
+
+    cfg = dataclasses.replace(get_config("olmoe_1b_7b"), n_layers=2, d_model=64, n_heads=4,
+                              n_kv_heads=4, d_ff=32, vocab_size=128, n_experts=8, top_k=2,
+                              dtype="float32")
+    params = init_params(transformer.param_defs(cfg), torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, 128, (2, 16), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    runs = []
+    for m in (None, mesh):
+        leaves = {k: v.detach().requires_grad_() for k, v in tree_leaves(params)}
+        loss, _ = transformer.loss(tree_from_leaves(leaves.items()), batch, cfg, mesh=m)
+        runs.append([loss] + list(torch.autograd.grad(loss, list(leaves.values()))))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    return {"shape": tuple(mesh.shape), "names": mesh.mesh_dim_names,
+            "batch": rules["batch"], "fsdp": rules["fsdp"],
+            "mesh_threaded": rules["__mesh__"] is mesh, "refused": refused,
+            "constrained": [str(p) for p in moved.placements],
+            "constrained_whole": bool(torch.equal(moved.full_tensor(), t)),
+            "plain_untouched": constrain(t, ("fsdp", None), rules) is t,
+            "transformer_same_bits": same}
