@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --size-cells   # phase 19's cuts (see below)
 
 Run from the root of a checkout, with no arguments: it puts `src` on
 `sys.path` itself and imports nothing of JAX or of the `repro` package.
@@ -175,6 +176,33 @@ rule).
    CPU's bits; 50 error-feedback steps within `repro`'s bound; ms a step,
    bytes handed to the all-reduce); the olmoe layer saved and restored
    under its `param_pspecs`, every leaf a DTensor of the saved bits.
+19. recsys_cells — the five recsys archs' dry-run cells
+   (`launch/cells.build_cell`) at full width, weights from a seed, through
+   a one-rank NCCL mesh (the (1, 1) test mesh): serve_p99 (512),
+   serve_bulk (262,144), retrieval_cand (1,000,000 candidates, padded to
+   1,000,448) and one AdamW step of train_batch (65,536); a cell whose
+   peaks pass `REC_PEAK_BUDGET` or `REC_RESERVED_BUDGET` at that size runs
+   at `REC_CUTS`'s, the largest multiple of 512 that fits (`python3 chip_smoke.py --size-cells`
+   finds them on the card: probes of each cell's peak, from the whole size
+   down). At one rank every exchange is over a mesh dim of one rank, which
+   the lookup, the loss's mean and the step skip, so a cell's `fn` runs
+   the plain path and the NCCL group carries no collective. Each cell's
+   `fn` against the plain call (no rules) on the same inputs, once: the
+   same bits (every output leaf), the launches of one call, the peak GB of
+   the two; then the median ms of `fn` (`SERVE_REPS` calls at serve_p99,
+   `REC_REPS` past it). Before those cells, ranks that split the tables
+   on the one card: 2 and then 4 processes (spawned; gloo groups, every tensor on cuda:0,
+   each exchange copied through host memory), as (1, 2), (2, 2) and
+   (1, 4) meshes, run taobao_ssa's and FM's serve_p99, retrieval_cand and
+   one AdamW step at `RANK_STEP_BATCH`, and taobao_ssa's serve_p99 under
+   the C2 window and with a structured-pruned tower, each rank on its
+   blocks (the kernel's row range sees the other ranks' ids; the C2 and
+   pruned calls launch `local_attention` and `block_pruned_matmul`):
+   every forward block the one-rank call's bits on the whole tables and
+   the rank's blocks of the rest, the step within phase 5's rule against
+   the one-rank step's block.
+The kernels phase also runs `embedding_bag`'s row range (51,200 ids into
+one block of the item table split 2 and 4 ways).
 
 Then the `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and the exit code is
@@ -197,7 +225,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs.base import RECSYS_ARCHS, get_config, with_attn_window  # noqa: E402
-from repro_torch.configs.shapes import GNN_SHAPES  # noqa: E402
+from repro_torch.configs.shapes import GNN_SHAPES, RECSYS_SHAPES  # noqa: E402
 from repro_torch.core import pruning  # noqa: E402
 from repro_torch.core.compression_loop import run_ladder, serving_params, variant_stats  # noqa: E402
 from repro_torch.core.quantization import quantize_weight  # noqa: E402
@@ -208,7 +236,9 @@ from repro_torch.kernels.augru import augru as augru_kernel  # noqa: E402
 from repro_torch.kernels.augru import ops as augru_ops  # noqa: E402
 from repro_torch.kernels.augru.ref import augru_ref  # noqa: E402
 from repro_torch.kernels.block_pruned_matmul import block_pruned_matmul as bpm_kernel  # noqa: E402
-from repro_torch.launch import bench_kernels, compress_and_serve, quickstart, serve, train  # noqa: E402
+from repro_torch.launch import (  # noqa: E402
+    bench_kernels, cells, compress_and_serve, quickstart, serve, train,
+)
 from repro_torch.launch.bench_kernels import bound, time_ms  # noqa: E402
 from repro_torch.launch.train import make_data  # noqa: E402
 from repro_torch.training import checkpoint  # noqa: E402
@@ -216,7 +246,7 @@ from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.distributed import expert_parallel, grad_compression  # noqa: E402
-from repro_torch.distributed.sharding import LM_RULES, adapt_rules  # noqa: E402
+from repro_torch.distributed.sharding import LM_RULES, adapt_rules, block_slices  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.models.gnn import nequip, sampler  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as eb_ops  # noqa: E402
@@ -412,10 +442,19 @@ def _embedding_bag_kernel(gen, flush) -> dict:
                   flush),  # DIN's history lookup too: the same fields
         _bag_case("autoint_unified_nnz1", fm_rows, 16, fm_vocab, 512 * 39, 1, False, gen, flush),
     ]
+    # the row range: taobao_ssa's history lookup into one block of the item
+    # table split 2 and 4 ways (half and three quarters of the ids foreign)
+    item = torch.randn((200_192, 64), generator=gen, device="cuda")
+    hist = torch.randint(0, 200_000, (512 * 100, 1), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    ranges = [{"shape": f"taobao_item_hist_nnz1_block_of_{ways}", "table": [200_192, 64],
+               "B": 512 * 100, "nnz": 1, **bench_kernels.embedding_bag_range_case(
+                   item, hist, ways, 0, flush=flush)} for ways in (2, 4)]
+    del item, hist
     torch.cuda.empty_cache()
-    for c in cases:
+    for c in cases + ranges:
         emit({"phase": "kernels", "kernel": "embedding_bag", **c})
-    bad = [c["shape"] for c in cases if not c["ok"]]
+    bad = [c["shape"] for c in cases + ranges if not c["ok"]]
     if bad:
         raise AssertionError(f"embedding_bag disagrees with its plain version at {bad}")
     head = cases[0]  # taobao_ssa's largest lookup: 51,200 ids into the item table
@@ -427,7 +466,7 @@ def _embedding_bag_kernel(gen, flush) -> dict:
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "vs_library": head["vs_library"], "at": head["shape"], "shapes": cases,
+        "vs_library": head["vs_library"], "at": head["shape"], "shapes": cases + ranges,
     }
 
 
@@ -883,6 +922,9 @@ def phase_card_vs_cpu(arch, cfg, params_by_variant, batch) -> None:
 
 
 def _to_cpu(tree):
+    """A tree of card tensors (dicts, tuples) on the host."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_cpu(t) for t in tree)
     return tree_map(lambda t: t.to("cpu"), tree)
 
 
@@ -2182,6 +2224,445 @@ def phase_distributed() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the recommender's cells through a mesh, and ranks on one card
+# ---------------------------------------------------------------------------
+
+REC_SHAPES = ("serve_p99", "serve_bulk", "retrieval_cand", "train_batch")
+# A cell fits the card where its peak `max_memory_allocated` is within
+# REC_PEAK_BUDGET and its peak `max_memory_reserved` (the allocated bytes
+# and the allocator's free blocks) within REC_RESERVED_BUDGET: the card's
+# 85.0e9 bytes less room for the CUDA context, NCCL's buffers and what
+# the earlier phases leave allocated (0.87 GB on an H100)
+REC_PEAK_BUDGET = 76e9
+REC_RESERVED_BUDGET = 80e9
+# (arch, shape) -> examples (retrieval: candidates) where the shape's own
+# size does not fit: the largest multiple of 512 that does,
+# found on an H100 by `python3 chip_smoke.py --size-cells` (PERF.md §4
+# lists its probes); every other cell runs at its shape's size
+REC_CUTS = {
+    ("taobao_ssa", "serve_bulk"): 79872,
+    ("taobao_ssa", "train_batch"): 41984,
+    ("dien", "serve_bulk"): 179712,
+    ("dien", "retrieval_cand"): 277504,
+    ("dien", "train_batch"): 51200,
+    ("din", "retrieval_cand"): 397312,
+    ("autoint", "retrieval_cand"): 635392,
+}
+REC_REPS = 3  # timed calls a cell past serve_p99 (which takes SERVE_REPS)
+RANK_WORLDS = {2: ((1, 2),), 4: ((2, 2), (1, 4))}
+RANK_ARCHS = ("taobao_ssa", "fm")
+RANK_STEP_BATCH = 512
+RANK_LR = 1e-4  # the cells' AdamW (`get_optimizer("adamw")`)
+RANK_REPS = 3  # timed calls of a rank's case after the first
+RANK_TIMEOUT_S = 420
+
+
+def _sized(shape, n: int):
+    """`shape` at `n` examples (a retrieval shape: `n` candidates)."""
+    if shape.kind == "retrieval":
+        return dataclasses.replace(shape, n_candidates=n)
+    return dataclasses.replace(shape, batch=n)
+
+
+def _rec_batch(cfg, meta: dict, gen, device) -> dict:
+    """Real inputs for a recsys cell's "meta" batch: ids in each field's
+    vocabulary, histories of 1..seq_len, labels 0/1."""
+    vocab = {f.name: f.vocab for f in cfg.fields}
+    field = {"hist_item": "item", "hist_category": "category", "cand_category": "category"}
+    out = {}
+    for k, a in meta.items():
+        if k == "sparse_idx":
+            out[k] = torch.stack([torch.randint(0, f.vocab, a.shape[:1], generator=gen,
+                                                device=device, dtype=torch.int32)
+                                  for f in cfg.fields], 1)
+        elif k == "hist_len":
+            out[k] = torch.randint(1, cfg.seq_len + 1, a.shape, generator=gen, device=device,
+                                   dtype=torch.int32)
+        elif k == "label":
+            out[k] = torch.randint(0, 2, a.shape, generator=gen, device=device).float()
+        else:
+            out[k] = torch.randint(0, vocab[field.get(k, k)], a.shape, generator=gen,
+                                   device=device, dtype=torch.int32)
+    return out
+
+
+def _rec_args(cfg, cell, gen, device="cuda") -> tuple:
+    """Whole arguments for a recsys cell: params from `gen`, AdamW's first
+    state, a batch (or a query and candidate ids) from `gen`."""
+    params = init_params(api.param_defs(cfg), gen, device)
+    kind = cell.meta["kind"]
+    if kind == "train":
+        return params, adamw(RANK_LR).init(params), _rec_batch(cfg, cell.args[2], gen, device)
+    if kind == "serve":
+        return params, _rec_batch(cfg, cell.args[1], gen, device)
+    if cfg.interaction in ("fm", "self_attn"):
+        top = max(f.vocab for f in cfg.fields)
+    else:
+        top = {f.name: f.vocab for f in cfg.fields}["item"]
+    cand = torch.randint(0, top, cell.args[2].shape, generator=gen, device=device,
+                         dtype=torch.int32)
+    return params, _rec_batch(cfg, cell.args[1], gen, device), cand
+
+
+def _rec_plain(cfg, kind):
+    """The one-rank call a cell's `fn` is held against: no rules."""
+    if kind == "serve":
+        return lambda p, b: api.serve(p, b, cfg)
+    if kind == "retrieval":
+        return lambda p, q, c: api.retrieval(p, q, c, cfg)
+    return make_train_step(lambda p, b: api.loss(p, b, cfg), adamw(RANK_LR))
+
+
+def _tree_list(tree) -> list:
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in _tree_list(t)]
+    if isinstance(tree, dict):
+        return [leaf for _, leaf in tree_leaves(tree)]
+    return [tree]
+
+
+def _differing(a, b) -> int:
+    la, lb = _tree_list(a), _tree_list(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"outputs of {len(la)} and {len(lb)} leaves")
+    return sum(x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y)
+               for x, y in zip(la, lb))
+
+
+def _rec_run(arch, cfg, shape_name, shape, mesh, gen) -> dict:
+    """One cell at `shape` on `mesh`: its `fn` and the plain call on the same
+    inputs (the `fn`'s output moved to the host while the plain call runs),
+    the outputs' differing leaves, the launches of one `fn` call, the peak
+    bytes of the two calls."""
+    cell = cells.build_cell(arch, shape_name, mesh, shape=shape)
+    args = _rec_args(cfg, cell, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    serve.reset_launch_counts()
+    out = _to_cpu(cell.fn(*args))
+    torch.cuda.synchronize()
+    launches = serve.launch_counts()
+    ref = _to_cpu(_rec_plain(cfg, cell.meta["kind"])(*args))
+    torch.cuda.synchronize()
+    return {"cell": cell, "args": args, "differing": _differing(out, ref),
+            "launches_per_call": launches, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "reserved_bytes": torch.cuda.max_memory_reserved()}
+
+
+def _rec_size(arch, shape_name, mesh) -> dict:
+    """The largest multiple of 512 up to the shape's own size at which the
+    cell fits, and the probes [n, peak allocated bytes, peak reserved
+    bytes] (None, None where the card ran out of memory): the whole size
+    first, then from an eighth of it up, each next size the secant's of
+    the larger of the two peaks' shares of their budgets through the two
+    largest sizes that fit, where it falls between them and the smallest
+    that does not, else the midpoint."""
+    import gc
+
+    cfg = get_config(arch)
+    full = RECSYS_SHAPES[shape_name]
+    n_full = full.n_candidates if full.kind == "retrieval" else full.batch
+    probes, share = [], {}
+
+    def fits(n):
+        try:
+            run = _rec_run(arch, cfg, shape_name, _sized(full, n), mesh,
+                           torch.Generator(device="cuda").manual_seed(19))
+            peaks = [run["peak_bytes"], run["reserved_bytes"]]
+            del run
+        except RuntimeError as e:  # torch.OutOfMemoryError, or cuBLAS's workspace
+            if not ("out of memory" in str(e) or "ALLOC_FAILED" in str(e)):
+                raise
+            peaks = [None, None]
+        gc.collect()
+        torch.cuda.empty_cache()
+        probes.append([n, *peaks])
+        if peaks[0] is None:
+            return False
+        share[n] = max(peaks[0] / REC_PEAK_BUDGET, peaks[1] / REC_RESERVED_BUDGET)
+        return share[n] <= 1.0
+
+    lo, hi = n_full // 8 // 512 * 512, n_full
+    if fits(hi):
+        lo = hi
+    else:
+        if not fits(lo):
+            raise AssertionError(f"{arch}:{shape_name} does not fit at {lo}")
+        while hi - lo > 512:
+            n = (lo + hi) // 2 // 512 * 512
+            held = sorted((m, r) for m, r in share.items() if r <= 1.0)
+            if len(held) > 1 and held[-1][1] > held[-2][1]:
+                (n1, r1), (n2, r2) = held[-2:]
+                guess = int(n2 + (1.0 - r2) * (n2 - n1) / (r2 - r1)) // 512 * 512
+                if lo < guess < hi:
+                    n = guess
+                elif guess <= lo:
+                    n = lo + 512
+            if fits(n):
+                lo = n
+            else:
+                hi = n
+    rec = {"phase": "size_cells", "arch": arch, "shape": shape_name, "full": n_full,
+           "fits": lo, "probes": probes}
+    emit(rec)
+    return rec
+
+
+def size_cells() -> None:
+    """`python3 chip_smoke.py --size-cells`: `_rec_size` of every recsys
+    cell past serve_p99 on the one-rank NCCL mesh phase 19 uses; prints
+    REC_CUTS's entries."""
+    import torch.distributed as dist
+
+    phase_device()
+    phase_build()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_sizes_"))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(root / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh("cuda")
+        cuts = {}
+        for arch in RECSYS_ARCHS:
+            for shape_name in REC_SHAPES[1:]:
+                rec = _rec_size(arch, shape_name, mesh)
+                if rec["fits"] < rec["full"]:
+                    cuts[f"{arch}:{shape_name}"] = rec["fits"]
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "size_cells", "budget_bytes": REC_PEAK_BUDGET,
+          "reserved_budget_bytes": REC_RESERVED_BUDGET,
+          "card_bytes": torch.cuda.mem_get_info()[1], "cuts": cuts})
+
+
+def _rec_cell_on_mesh(arch, shape_name, mesh) -> dict:
+    """Phase 19's record of one (arch, shape) cell on the one-rank mesh, at
+    its shape's size or REC_CUTS's. The plain call runs once, for the bits:
+    at one rank the cell's `fn` is the plain path, so only `fn` is timed."""
+    cfg = get_config(arch)
+    full = RECSYS_SHAPES[shape_name]
+    n_full = full.n_candidates if full.kind == "retrieval" else full.batch
+    n = REC_CUTS.get((arch, shape_name), n_full)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    t0 = time.perf_counter()
+    run = _rec_run(arch, cfg, shape_name, _sized(full, n), mesh, gen)
+    cell, args = run["cell"], run["args"]
+    torch.cuda.empty_cache()  # as `--size-cells` left the allocator after the two calls
+    ms = [_timed(lambda: cell.fn(*args))[1]
+          for _ in range(SERVE_REPS if shape_name == "serve_p99" else REC_REPS)]
+    rec = {"phase": "recsys_cells", "arch": arch, "shape": shape_name,
+           "examples": cell.meta["examples"], "cut": n < n_full, "full": n_full,
+           "differing_leaves": run["differing"], "launches_per_call": run["launches_per_call"],
+           "ms": float(np.median(ms)), "ms_each": ms, "peak_gb": run["peak_bytes"] / 1e9,
+           "reserved_gb": run["reserved_bytes"] / 1e9,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    del run, args, cell
+    torch.cuda.empty_cache()
+    if rec["differing_leaves"]:
+        raise AssertionError(f"{arch}:{shape_name} through the mesh differs from the plain "
+                             f"call in {rec['differing_leaves']} leaves")
+    return rec
+
+
+def _cut_block(tree, specs, mesh, coord):
+    """This rank's blocks (`block_slices`) of a tree of whole card tensors."""
+    if isinstance(tree, dict):
+        return {k: _cut_block(v, specs[k], mesh, coord) for k, v in tree.items()}
+    return tree[block_slices(tree.shape, specs, mesh, coord)].contiguous()
+
+
+def _spec_tree(tree, specs):
+    """`specs` stretched over `tree`: a rep dict ({"w","mask"}, a
+    "block_mask") where `specs` has one spec gives each of its leaves that
+    spec, as `repro`'s layout of a pruned linear keeps its weight's."""
+    if isinstance(tree, dict):
+        return {k: _spec_tree(v, specs[k] if isinstance(specs, dict) else specs)
+                for k, v in tree.items()}
+    return specs
+
+
+def _rank_cases(mesh) -> list:
+    """On this rank of `mesh` (gloo groups, every tensor on cuda:0):
+    taobao_ssa's and FM's serve_p99, retrieval_cand and an AdamW step at
+    `RANK_STEP_BATCH`, full width, each on this rank's blocks, and
+    taobao_ssa's serve_p99 under the C2 window (`local_attention`) and with
+    a tower pruned in 128-tiles (`block_pruned_matmul`). The forward
+    against the one-rank call on the whole tables and this rank's blocks
+    of the rest (to the bit) and against the one-rank call's block of the
+    whole batch; the step against the one-rank step's block under phase
+    5's rule."""
+    from repro_torch.configs.shapes import RecSysShape
+    from repro_torch.distributed import collectives
+
+    coord = tuple(mesh.get_coordinate())
+    step = RecSysShape("train_batch", RANK_STEP_BATCH, "train")
+    cases = [(arch, shape_name, shape, "") for arch in RANK_ARCHS
+             for shape_name, shape in (("serve_p99", None), ("retrieval_cand", None),
+                                       ("train_batch", step))]
+    cases += [("taobao_ssa", "serve_p99", None, "c2"), ("taobao_ssa", "serve_p99", None, "pruned")]
+    out = []
+    for arch, shape_name, shape, variant in cases:
+        cfg = get_config(arch)
+        if variant == "c2":
+            cfg = with_attn_window(cfg, C2_WINDOW)
+        gen = torch.Generator(device="cuda").manual_seed(23)  # the same on every rank
+        torch.cuda.reset_peak_memory_stats()
+        cell = cells.build_cell(arch, shape_name, mesh, cfg=cfg, shape=shape)
+        whole = _rec_args(cfg, cell, gen)
+        specs = cell.in_specs
+        if variant == "pruned":
+            whole = (pruning.with_block_masks(pruning.prune_tree(whole[0], 0.5, structured=True)),
+                     *whole[1:])
+            specs = (_spec_tree(whole[0], specs[0]), *specs[1:])
+        blocks = [_cut_block(a, s, mesh, coord) for a, s in zip(whole, specs)]
+        serve.reset_launch_counts()
+        got, first_ms = _timed(lambda: cell.fn(*blocks))
+        launches = serve.launch_counts()
+        ms = float(np.median([_timed(lambda: cell.fn(*blocks))[1] for _ in range(RANK_REPS)]))
+        rec = {"mesh": list(mesh.shape), "coord": coord, "arch": arch, "shape": shape_name,
+               "variant": variant, "launches": launches, "first_ms": first_ms, "ms": ms,
+               "through_host": collectives.through_host(
+                   got if torch.is_tensor(got) else got[2]["loss"], mesh.get_group("model"))}
+        kind = cell.meta["kind"]
+        plain = _rec_plain(cfg, kind)
+        if kind != "train":
+            own = plain(whole[0], *blocks[1:])
+            ref = _cut_block(plain(*whole), cell.out_specs, mesh, coord)
+            rec.update(own_block_same_bits=bool(torch.equal(own, got)),
+                       vs_whole_max_abs=float((ref - got).abs().max()))
+            rec["ok"] = rec["own_block_same_bits"]
+        else:
+            # the whole tree's steps below run on every rank at once: this
+            # rank's blocks and step go to the host first
+            loss, gnorm = float(got[2]["loss"]), float(got[2]["grad_norm"])
+            after = _to_cpu(got[0])
+            blocks = got = None
+            before = _to_cpu(_cut_block(whole[0], specs[0], mesh, coord))
+            sgd_step = make_train_step(lambda p, b: api.loss(p, b, cfg), sgd(1.0, momentum=0.0))
+            clipped = _to_cpu(_cut_block(sgd_step(whole[0], sgd(1.0, momentum=0.0).init(whole[0]),
+                                                  whole[2])[0], specs[0], mesh, coord))
+            grads = {path: b - a for (path, b), (_, a)
+                     in zip(tree_leaves(before), tree_leaves(clipped))}
+            floor = TRAIN_ZERO_GRAD_REL * max(float(g.abs().max()) for g in grads.values())
+            zero = {p for p, g in grads.items() if float(g.abs().max()) <= floor}
+            one, _, one_m = plain(*whole)
+            host = _to_cpu(_cut_block(one, specs[0], mesh, coord))
+            del one
+            worst, rows = _compare_step(f"{arch}@{mesh.shape}", before, after, host, grads, zero,
+                                        RANK_LR)
+            rec.update(max_abs_diff=worst, loss=loss, loss_one_rank=float(one_m["loss"]),
+                       grad_norm=gnorm, grad_norm_one_rank=float(one_m["grad_norm"]),
+                       bad_leaves=[r["leaf"] for r in rows if not r["ok"]])
+            rec["ok"] = (not rec["bad_leaves"]
+                         and abs(loss - rec["loss_one_rank"]) <= LOSS_REL * abs(loss)
+                         and abs(gnorm - rec["grad_norm_one_rank"]) <= GRAD_NORM_REL * gnorm)
+        kernel = {"c2": "local_attention", "pruned": "block_pruned_matmul"}.get(variant)
+        if kernel and not launches[kernel]:
+            rec["ok"] = False
+            rec["missing_kernel"] = kernel
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out.append(rec)
+        del whole, blocks, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ranks_main(rank, world, init_file, meshes, out_dir) -> None:
+    """A process of phase 19's ranks: a gloo group of `world` on one card."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import axis_names, make_mesh
+
+    torch.cuda.set_device(0)
+    serve.disable_tf32()
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        recs = [r for shape in meshes
+                for r in _rank_cases(make_mesh(shape, axis_names(shape), "cpu"))]
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(recs, Path(out_dir) / f"rank{rank}.pt")
+
+
+def _ranks_on_one_card(world: int, meshes) -> list:
+    import torch.multiprocessing as mp
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    t0 = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": "recsys_ranks", "world": world, "card_free_gb": free / 1e9,
+          "card_gb": total / 1e9, "parent_reserved_gb": torch.cuda.memory_reserved() / 1e9})
+    ctx = mp.start_processes(_ranks_main, args=(world, str(root / "init"), meshes, str(root)),
+                             nprocs=world, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() - t0 > RANK_TIMEOUT_S:
+                raise TimeoutError(f"{world} ranks ran past {RANK_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+    recs = [r for rank in range(world) for r in torch.load(root / f"rank{rank}.pt",
+                                                              weights_only=False)]
+    shutil.rmtree(root, ignore_errors=True)
+    for r in recs:
+        emit({"phase": "recsys_ranks", "world": world, **r})
+    emit({"phase": "recsys_ranks", "world": world, "seconds": time.perf_counter() - t0})
+    bad = [(r["mesh"], r["coord"], r["arch"], r["shape"], r["variant"])
+           for r in recs if not r["ok"]]
+    if bad:
+        raise AssertionError(f"ranks on one card differ from one rank: {bad}")
+    if not all(r["launches"]["embedding_bag"] for r in recs):
+        raise AssertionError("a rank's call launched no embedding_bag")
+    return recs
+
+
+def phase_recsys_cells() -> dict:
+    """Phase 19: ranks that split the tables on the one card
+    (`_ranks_on_one_card`), first, while this process holds little of the
+    card; then the five recsys archs' cells (`launch/cells.build_cell`)
+    at the dry run's shapes through a one-rank NCCL mesh, each against the
+    plain call (the bits, ms, peak GB, launches a call), at `REC_CUTS`'s
+    size where the shape's own does not fit. Returns the launches of the
+    one-rank part, counted from 0."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    for world, meshes in RANK_WORLDS.items():
+        _ranks_on_one_card(world, meshes)
+    torch.cuda.empty_cache()
+    emit({"phase": "recsys_cells", "part": "start",
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+          "reserved_gb": torch.cuda.memory_reserved() / 1e9})
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cells_"))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(root / "store"), 1),
+                            rank=0, world_size=1)
+    totals = {k: 0 for k in serve.KERNELS}
+    try:
+        mesh = make_test_mesh("cuda")
+        for arch in RECSYS_ARCHS:
+            for shape_name in REC_SHAPES:
+                serve.reset_launch_counts()
+                _rec_cell_on_mesh(arch, shape_name, mesh)
+                totals = {k: totals[k] + n for k, n in serve.launch_counts().items()}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "recsys_cells", "part": "done", "launches": totals,
+          "seconds": time.perf_counter() - t0})
+    return totals
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_device()
@@ -2210,6 +2691,7 @@ def main() -> None:
         by_path[f"gnn_{name}"] = phase_gnn_full_size(name)
     emit({"phase": "gnn_full_size", **_ogb_products_reckoning(get_config("nequip"))})
     by_path["distributed"] = phase_distributed()
+    by_path["recsys_cells"] = phase_recsys_cells()
     for path in ("train_launcher_fm", "train_launcher_dien"):
         if not (by_path[path]["fm_interaction"] or by_path[path]["augru"]):
             raise AssertionError(f"{path} launched neither fm_interaction nor augru")
@@ -2227,4 +2709,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    size_cells() if sys.argv[1:] == ["--size-cells"] else main()

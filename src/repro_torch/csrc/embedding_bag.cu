@@ -48,17 +48,27 @@
 // first term of a run is acc = w*row (acc = row when `w` is null), not
 // 0 + w*row, so a bag of one with unit weight is exactly the gathered row.
 //
-// Out-of-range ids: an id outside [0, V) executes __trap() in the lane that
-// would read its row, before that read, so the kernel never reads outside
-// the table. The launch then fails and the next synchronising call on the
-// stream raises (the CUDA context is lost: an out-of-range id is a caller's
-// bug, not a recoverable input).
+// A row range: `table` may be one block of a larger table split by rows
+// across ranks, holding its rows [row0, row0 + V). Ids are the larger
+// table's, in [0, id_limit); an id outside the block (another rank's row)
+// adds nothing and reads no row: the group learns it from the id, which
+// it has loaded anyway, and skips the row load. A run's first term is its
+// first id inside the block; a run with none sums to +0.0. So a bag of one
+// is the gathered row on the rank that holds it and +0.0 on every other,
+// and their sum over the ranks is the row, bit for bit. The whole table
+// is row0 = 0, id_limit = V.
+//
+// Out-of-range ids: an id outside [0, id_limit) executes __trap() in the
+// lane that would read its row, before that read, so the kernel never
+// reads outside the table. The launch then fails and the next synchronising
+// call on the stream raises (the CUDA context is lost: an out-of-range id
+// is a caller's bug, not a recoverable input).
 //
 // Interface: plain C, loaded with ctypes. `vec` is 4, 2 or 1, with d % vec
 // == 0 and table and out aligned to 4*vec bytes; `split` a power of two
 // with G * split <= 32 (the wrapper, kernels/embedding_bag/embedding_bag.py,
-// picks both); B, nnz, V, d >= 1. Anything else returns
-// cudaErrorInvalidValue and launches nothing. It launches on `stream`,
+// picks both); B, nnz, V, d >= 1; 0 <= row0 and row0 + V <= id_limit.
+// Anything else returns cudaErrorInvalidValue and launches nothing. It launches on `stream`,
 // does not synchronise, allocates nothing, and returns cudaGetLastError()
 // after the launch (0 = launched).
 
@@ -120,7 +130,7 @@ template <int VEC, int G, bool ONE>
 __global__ void __launch_bounds__(kWarps * 32)
 embedding_bag_kernel(const float* __restrict__ table, const int32_t* __restrict__ idx,
                      const float* __restrict__ w, float* __restrict__ out,
-                     int B, int nnz, int V, int d, int split) {
+                     int B, int nnz, int V, int d, int split, int row0, int id_limit) {
   using T = typename Chunk<VEC>::T;
   constexpr int kIdRegs = (kU + G - 1) / G;  // ids a lane loads for its group
   const int lane = threadIdx.x & 31;
@@ -146,11 +156,15 @@ embedding_bag_kernel(const float* __restrict__ table, const int32_t* __restrict_
     if constexpr (ONE) {  // the group loads its one id in one broadcast request
       if (n_run == 1 && c < nvec) {
         const int r = __ldg(run_idx);
-        if (r < 0 || r >= V) __trap();
-        const T row = __ldg(reinterpret_cast<const T*>(table + static_cast<long long>(r) * d) + c);
-        acc = run_w ? scale_c(__ldg(run_w), row) : row;
+        if (r < 0 || r >= id_limit) __trap();
+        const int lr = r - row0;  // the row in this block
+        if (lr >= 0 && lr < V) {
+          const T row = __ldg(reinterpret_cast<const T*>(table + static_cast<long long>(lr) * d) + c);
+          acc = run_w ? scale_c(__ldg(run_w), row) : row;
+        }
       }
     } else {
+      bool first = true;  // no term added yet: the next one in the block is acc itself
       for (int t0 = 0; t0 < run; t0 += kU) {
         const int nu = min(kU, run - t0);  // the same for every lane of the warp
         int ids[kIdRegs];
@@ -164,24 +178,31 @@ embedding_bag_kernel(const float* __restrict__ table, const int32_t* __restrict_
         }
         T rows[kU];
         float wu[kU];
+        bool mine[kU];  // the id's row lies in this block
 #pragma unroll
         for (int u = 0; u < kU; ++u) {  // every row load issued before any add
           if (u >= nu) break;
           const int r = __shfl_sync(kFull, ids[u / G], u % G, G);
           wu[u] = __shfl_sync(kFull, ws[u / G], u % G, G);
+          const int lr = r - row0;
+          mine[u] = lr >= 0 && lr < V;
           if (t0 + u < n_run && c < nvec) {
-            if (r < 0 || r >= V) __trap();
-            rows[u] = __ldg(reinterpret_cast<const T*>(table + static_cast<long long>(r) * d) + c);
+            if (r < 0 || r >= id_limit) __trap();
+            if (mine[u]) {
+              rows[u] = __ldg(reinterpret_cast<const T*>(table + static_cast<long long>(lr) * d) + c);
+            }
           }
         }
 #pragma unroll
         for (int u = 0; u < kU; ++u) {
           if (t0 + u >= n_run || c >= nvec) break;
+          if (!mine[u]) continue;
           if (run_w) {
-            acc = (t0 + u == 0) ? scale_c(wu[u], rows[u]) : fma_c(wu[u], rows[u], acc);
+            acc = first ? scale_c(wu[u], rows[u]) : fma_c(wu[u], rows[u], acc);
           } else {
-            acc = (t0 + u == 0) ? rows[u] : add_c(rows[u], acc);
+            acc = first ? rows[u] : add_c(rows[u], acc);
           }
+          first = false;
         }
       }
     }
@@ -195,7 +216,7 @@ embedding_bag_kernel(const float* __restrict__ table, const int32_t* __restrict_
 
 template <int VEC, int G>
 int launch(const float* table, const int32_t* idx, const float* w, float* out, int B, int nnz,
-           int V, int d, int split, cudaStream_t stream) {
+           int V, int d, int split, int row0, int id_limit, cudaStream_t stream) {
   const bool one = nnz <= split;
   const int warps = one && static_cast<long long>(B) * G * split < kFewLanes ? kWarpsFew : kWarps;
   const long long bags_per_block = static_cast<long long>(warps) * (32 / (G * split));
@@ -203,13 +224,13 @@ int launch(const float* table, const int32_t* idx, const float* w, float* out, i
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = one ? embedding_bag_kernel<VEC, G, true> : embedding_bag_kernel<VEC, G, false>;
   kernel<<<static_cast<unsigned>(blocks), warps * 32, 0, stream>>>(table, idx, w, out, B, nnz, V, d,
-                                                                   split);
+                                                                   split, row0, id_limit);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int VEC>
 int launch_group(const float* table, const int32_t* idx, const float* w, float* out, int B,
-                 int nnz, int V, int d, int split, cudaStream_t stream) {
+                 int nnz, int V, int d, int split, int row0, int id_limit, cudaStream_t stream) {
   const int nvec = d / VEC;
   int group = 1;
   while (group < nvec && group < 32) group <<= 1;
@@ -217,12 +238,12 @@ int launch_group(const float* table, const int32_t* idx, const float* w, float* 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (group) {
-    case 1: return launch<VEC, 1>(table, idx, w, out, B, nnz, V, d, split, stream);
-    case 2: return launch<VEC, 2>(table, idx, w, out, B, nnz, V, d, split, stream);
-    case 4: return launch<VEC, 4>(table, idx, w, out, B, nnz, V, d, split, stream);
-    case 8: return launch<VEC, 8>(table, idx, w, out, B, nnz, V, d, split, stream);
-    case 16: return launch<VEC, 16>(table, idx, w, out, B, nnz, V, d, split, stream);
-    default: return launch<VEC, 32>(table, idx, w, out, B, nnz, V, d, split, stream);
+    case 1: return launch<VEC, 1>(table, idx, w, out, B, nnz, V, d, split, row0, id_limit, stream);
+    case 2: return launch<VEC, 2>(table, idx, w, out, B, nnz, V, d, split, row0, id_limit, stream);
+    case 4: return launch<VEC, 4>(table, idx, w, out, B, nnz, V, d, split, row0, id_limit, stream);
+    case 8: return launch<VEC, 8>(table, idx, w, out, B, nnz, V, d, split, row0, id_limit, stream);
+    case 16: return launch<VEC, 16>(table, idx, w, out, B, nnz, V, d, split, row0, id_limit, stream);
+    default: return launch<VEC, 32>(table, idx, w, out, B, nnz, V, d, split, row0, id_limit, stream);
   }
 }
 
@@ -230,19 +251,20 @@ int launch_group(const float* table, const int32_t* idx, const float* w, float* 
 
 extern "C" int embedding_bag_f32(const void* table, const void* idx, const void* weights,
                                  void* out, int B, int nnz, int V, int d, int vec, int split,
-                                 void* stream) {
+                                 int row0, int id_limit, void* stream) {
   const auto* t = static_cast<const float*>(table);
   const auto* i = static_cast<const int32_t*>(idx);
   const auto* w = static_cast<const float*>(weights);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || nnz < 1 || V < 1 || d < 1 || (vec != 1 && vec != 2 && vec != 4) || d % vec != 0) {
+  if (B < 1 || nnz < 1 || V < 1 || d < 1 || (vec != 1 && vec != 2 && vec != 4) || d % vec != 0 ||
+      row0 < 0 || static_cast<long long>(row0) + V > id_limit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (vec) {
-    case 4: return launch_group<4>(t, i, w, o, B, nnz, V, d, split, s);
-    case 2: return launch_group<2>(t, i, w, o, B, nnz, V, d, split, s);
-    case 1: return launch_group<1>(t, i, w, o, B, nnz, V, d, split, s);
+    case 4: return launch_group<4>(t, i, w, o, B, nnz, V, d, split, row0, id_limit, s);
+    case 2: return launch_group<2>(t, i, w, o, B, nnz, V, d, split, row0, id_limit, s);
+    case 1: return launch_group<1>(t, i, w, o, B, nnz, V, d, split, row0, id_limit, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -17,13 +17,13 @@ The layout is `repro`'s (`ep_specs`, under `LM_RULES` adapted to the mesh):
 x by batch over the dp axes and by seq over "model"; the expert weights by
 expert over "model" and by dim 1 over the dp axes; the shared expert's
 weights by dim 0 over the dp axes; the router replicated. Every step is
-differentiable through this module's autograd Functions over
-`torch.distributed`'s collectives: an all_to_all's backward is the reverse
-all_to_all, an all_reduce's an all_reduce, an all_gather's a
-reduce-scatter. shard_map's transpose
-sums the gradient of an input over the mesh dims its spec leaves out; the
-port does so explicitly (`_Exchange.replicated`): the router's over
-every mesh dim, the shared expert's over those that are not dp axes
+differentiable through `distributed/collectives`' autograd Functions
+over `torch.distributed`'s collectives: an all_to_all's backward is the
+reverse all_to_all, an all_reduce's an all_reduce, an all_gather's a
+reduce-scatter. shard_map's transpose sums the gradient of an input over
+the mesh dims its spec leaves out; the port does so explicitly
+(`_Exchange.replicated`, through `collectives.sum_grad`): the router's
+over every mesh dim, the shared expert's over those that are not dp axes
 ("model").
 
 The aux loss is `repro`'s: each rank's own `E·Σ me·ce`, averaged over the
@@ -50,6 +50,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives
 from repro_torch.distributed.sharding import LM_RULES, P, adapt_rules, mesh_axis_names
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.moe import expert_ffn, route, scatter_rows
@@ -96,85 +97,6 @@ def ep_specs(rules, has_shared: bool) -> Tuple[P, Dict[str, P]]:
     return P(dp, rules.get("seq"), None), specs
 
 
-class _AllToAll(torch.autograd.Function):
-    """`all_to_all_single` over `group` (equal chunks of dim 0) forward; the
-    same exchange of the gradient backward."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        out = torch.empty_like(t)
-        dist.all_to_all_single(out, t.contiguous(), group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        out = torch.empty_like(grad)
-        dist.all_to_all_single(out, grad.contiguous(), group=ctx.group)
-        return out, None
-
-
-class _AllReduce(torch.autograd.Function):
-    """The sum over `group` forward; the sum of the gradient backward."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        out = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        out = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=ctx.group)
-        return out, None
-
-
-class _SumGrad(torch.autograd.Function):
-    """The identity forward; the gradient summed over `groups` backward."""
-
-    @staticmethod
-    def forward(ctx, t, groups):
-        ctx.groups = groups
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.contiguous()
-        for g in ctx.groups:
-            dist.all_reduce(grad, group=g)
-        return grad, None
-
-
-class _GatherDim(torch.autograd.Function):
-    """The tiled all_gather of `t` along `dim` over `group` forward; the
-    reduce-scatter (sum) of the gradient backward. The gather lands in a
-    new buffer n times `t`'s size, so `_Exchange.gather_dp` takes it only
-    over a group of more than one rank."""
-
-    @staticmethod
-    def forward(ctx, t, dim, group):
-        ctx.dim, ctx.group = dim, group
-        n = dist.get_world_size(group)
-        out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))  # gloo's layout
-        dist.all_gather_into_tensor(out, t.contiguous(), group=group)
-        shape = list(t.shape)
-        shape[dim] *= n
-        return out.view((n,) + tuple(t.shape)).movedim(0, dim).reshape(shape)
-
-    @staticmethod
-    def backward(ctx, grad):
-        n = dist.get_world_size(ctx.group)
-        shape = list(grad.shape)
-        shape[ctx.dim: ctx.dim + 1] = [n, shape[ctx.dim] // n]
-        parts = grad.reshape(shape).movedim(ctx.dim, 0).contiguous()
-        out = grad.new_empty(parts.shape[1:])
-        dist.reduce_scatter_tensor(out, parts.reshape((-1,) + tuple(parts.shape[2:])),
-                                   group=ctx.group)
-        return out, None, None
-
-
 class _Exchange:
     """The collectives of one call: over the "model" group (`ep`), the dp
     groups (major to minor) and any mesh dim by name, or none at all
@@ -197,7 +119,7 @@ class _Exchange:
         source order (`lax.all_to_all(..., 0, 0, tiled=False)`)."""
         if self.mesh is None:
             return t
-        return _AllToAll.apply(t, self.ep)
+        return collectives.all_to_all(t, self.ep)
 
     def gather_dp(self, w: torch.Tensor, dim: int) -> torch.Tensor:
         """`lax.all_gather(w, dp_axes, axis=dim, tiled=True)`: the minor
@@ -208,7 +130,7 @@ class _Exchange:
             return w
         for g in reversed(self.dp):
             if dist.get_world_size(g) > 1:
-                w = _GatherDim.apply(w, dim, g)
+                w = collectives.gather(w, dim, g)
         return w
 
     def pmean(self, t: torch.Tensor) -> torch.Tensor:
@@ -217,7 +139,7 @@ class _Exchange:
         if self.mesh is None:
             return t
         for a in self.names:
-            t = _AllReduce.apply(t, self.groups[a])
+            t = collectives.all_reduce(t, self.groups[a])
         return t / self.mesh.size()
 
     def replicated(self, t: torch.Tensor, sharded_over: Sequence[str] = ()) -> torch.Tensor:
@@ -227,7 +149,7 @@ class _Exchange:
         if self.mesh is None:
             return t
         rest = tuple(self.groups[a] for a in self.names if a not in sharded_over)
-        return _SumGrad.apply(t, rest) if rest else t
+        return collectives.sum_grad(t, rest)
 
 
 def moe_ffn_ep(x, layer_params, cfg, stats=None, *,

@@ -131,6 +131,21 @@ def adapt_rules(rules: Mapping[str, MeshAxes], mesh) -> Mapping[str, MeshAxes]:
     return out
 
 
+def mesh_groups(mesh, axes) -> Tuple:
+    """The process groups of the mesh dims `axes` (major to minor) that
+    have more than one rank: those a sum over them crosses."""
+    names = mesh_axis_names(mesh)
+    return tuple(mesh.get_group(a) for a in axes if mesh.size(names.index(a)) > 1)
+
+
+def rule_groups(rules, name: str) -> Tuple:
+    """`mesh_groups` of the mesh dims that rule `name` lays a tensor out
+    over: the groups a reduction over that logical axis sums across. ()
+    without a mesh in `rules` (or without rules)."""
+    mesh = None if rules is None else rules.get("__mesh__")
+    return () if mesh is None else mesh_groups(mesh, entry_axes(rules.get(name)))
+
+
 def pspec(axes: Sequence[Optional[str]], rules: Mapping[str, MeshAxes]) -> PartitionSpec:
     """logical axes tuple -> PartitionSpec via the rule table."""
     out = []
@@ -166,7 +181,8 @@ def pspec(axes: Sequence[Optional[str]], rules: Mapping[str, MeshAxes]) -> Parti
     return P(*out)
 
 
-def _entry_axes(entry: MeshAxes) -> Tuple[str, ...]:
+def entry_axes(entry: MeshAxes) -> Tuple[str, ...]:
+    """The mesh dims of a spec entry or rule, major to minor."""
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
@@ -184,7 +200,7 @@ def placements(spec: PartitionSpec, mesh):
     names = mesh_axis_names(mesh)
     out = [Replicate()] * len(names)
     for d, entry in enumerate(spec):
-        order = [names.index(a) if a in names else -1 for a in _entry_axes(entry)]
+        order = [names.index(a) if a in names else -1 for a in entry_axes(entry)]
         if -1 in order:
             raise ValueError(f"spec {spec} names a dim the mesh {names} lacks")
         if order != sorted(order):
@@ -231,7 +247,7 @@ def block_slices(shape, spec: PartitionSpec, mesh, coordinate) -> Tuple[slice, .
         raise ValueError(f"spec {spec} has more entries than shape {tuple(shape)} has dims")
     out = []
     for d, n in enumerate(shape):
-        axes = _entry_axes(spec[d]) if d < len(spec) else ()
+        axes = entry_axes(spec[d]) if d < len(spec) else ()
         ways = math.prod(sizes[a] for a in axes)
         if n % ways:
             raise ValueError(f"dim {d} of shape {tuple(shape)} is not divisible by the "

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 # threads that keep an H100 busy: 132 SMs x 1,024 (the kernel's 8-warp
 # blocks, four of them an SM)
@@ -56,11 +56,13 @@ def load_width(table: torch.Tensor) -> int:
 
 def embedding_bag(
     table: torch.Tensor, idx: torch.Tensor, weights: Optional[torch.Tensor],
-    split: Optional[int] = None,
+    split: Optional[int] = None, *, row0: int = 0, id_limit: Optional[int] = None,
 ) -> torch.Tensor:
     """table: f32 [V,d]; idx: int32 [B,nnz]; weights: f32 [B,nnz] or None
     (all ones), all contiguous on the current CUDA device -> f32 [B,d].
-    `split` None takes `launch_plan`'s; a given split forces it."""
+    `split` None takes `launch_plan`'s; a given split forces it. `table`
+    holds the rows [row0, row0 + V) of a table of `id_limit` rows (None:
+    row0 + V); an id outside that block adds nothing and reads no row."""
     B, nnz = idx.shape
     V, d = table.shape
     vec = load_width(table)
@@ -70,7 +72,8 @@ def embedding_bag(
     err = _build.function("embedding_bag", "embedding_bag_f32", _ARGTYPES)(
         table.data_ptr(), idx.data_ptr(),
         None if weights is None else weights.data_ptr(), out.data_ptr(),
-        B, nnz, V, d, vec, split, torch.cuda.current_stream(table.device).cuda_stream,
+        B, nnz, V, d, vec, split, row0, row0 + V if id_limit is None else id_limit,
+        torch.cuda.current_stream(table.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"embedding_bag kernel launch failed: cudaError {err}")

@@ -10,6 +10,11 @@ on either device, as JAX's gather gradient is XLA's scatter-add and not a
 Pallas kernel. The table's gradient (`_table_grad`) adds each row's terms
 in one fixed order on either device, so a training step repeats bit for
 bit.
+
+A row range (`row0`, `id_limit`) makes `table` the block of rows
+[row0, row0 + V) of a table of `id_limit` rows split by rows across
+ranks: ids are the whole table's, an id outside the block adds nothing,
+and the table gradient adds into the block's rows only.
 """
 from __future__ import annotations
 
@@ -26,11 +31,11 @@ from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 launches = 0
 
 
-def _bag(table, idx, weights):
+def _bag(table, idx, weights, row0, id_limit):
     global launches
     if table.device.type == "cpu":
-        return embedding_bag_ref(table, idx, weights)
-    out = embedding_bag(table, idx, weights)
+        return embedding_bag_ref(table, idx, weights, row0, id_limit)
+    out = embedding_bag(table, idx, weights, row0=row0, id_limit=id_limit)
     launches += 1
     return out
 
@@ -68,16 +73,26 @@ def segment_sum(rows: torch.Tensor, seg: Segments) -> torch.Tensor:
     return out.reshape(seg.lengths.shape[:1] + rows.shape[1:])
 
 
-def _table_grad(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """d_table[v] = Σ of `rows` [B·nnz, d] whose id is v, in batch order."""
-    return segment_sum(rows, segments(idx, table.shape[0]))
+def _table_grad(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
+                row0: int = 0, ranged: bool = False) -> torch.Tensor:
+    """d_table[v] = Σ of `rows` [B·nnz, d] whose id is row0 + v, in batch
+    order. `ranged`: the ids outside the block go to one more segment past
+    the last, which is dropped (no host sync, as a boolean mask would
+    need), so that no row of the block has a term of them."""
+    V = table.shape[0]
+    if not ranged:
+        return segment_sum(rows, segments(idx, V))
+    local = idx.reshape(-1).long() - row0
+    local = torch.where((local >= 0) & (local < V), local, V)
+    return segment_sum(rows, segments(local, V + 1))[:V]
 
 
 class _EmbeddingBag(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, idx, weights):
+    def forward(ctx, table, idx, weights, row0, id_limit):
         ctx.save_for_backward(table, idx, weights)
-        return _bag(table, idx, weights)
+        ctx.row0, ctx.ranged = row0, id_limit != table.shape[0]
+        return _bag(table, idx, weights, row0, id_limit)
 
     @staticmethod
     def backward(ctx, dy):
@@ -88,18 +103,27 @@ class _EmbeddingBag(torch.autograd.Function):
             rows = dy[:, None, :].expand(B, nnz, d)
             if weights is not None:
                 rows = weights[..., None] * rows
-            d_table = _table_grad(table, idx, rows.reshape(B * nnz, d))
+            d_table = _table_grad(table, idx, rows.reshape(B * nnz, d), ctx.row0, ctx.ranged)
         if ctx.needs_input_grad[2]:
-            d_weights = (table.index_select(0, idx.reshape(-1)).reshape(B, nnz, d)
-                         * dy[:, None, :]).sum(dim=-1)
-        return d_table, None, d_weights
+            if ctx.ranged:  # a foreign id's row is 0 here
+                local = idx.long() - ctx.row0
+                mine = (local >= 0) & (local < table.shape[0])
+                rows = torch.where(mine[..., None], table[torch.where(mine, local, 0)], 0.0)
+            else:
+                rows = table.index_select(0, idx.reshape(-1)).reshape(B, nnz, d)
+            d_weights = (rows * dy[:, None, :]).sum(dim=-1)
+        return d_table, None, d_weights, None, None
 
 
 def embedding_bag_op(
-    table: torch.Tensor, idx: torch.Tensor, weights: Optional[torch.Tensor] = None
+    table: torch.Tensor, idx: torch.Tensor, weights: Optional[torch.Tensor] = None, *,
+    row0: int = 0, id_limit: Optional[int] = None,
 ) -> torch.Tensor:
     """table f32 [V,d] (any d), idx int32 [B,nnz], weights f32 [B,nnz] or
-    None (all ones) -> f32 [B,d] = Σ_j weights[b,j] · table[idx[b,j]]."""
+    None (all ones) -> f32 [B,d] = Σ_j weights[b,j] · table[idx[b,j]].
+    With a row range, `table` holds the rows [row0, row0 + V) of a table
+    of `id_limit` rows (None: row0 + V), and the sum runs over the ids
+    that lie in it."""
     check_tensor(table, "table", 2, torch.float32)
     check_tensor(idx, "idx", 2, torch.int32)
     if weights is not None:
@@ -109,5 +133,9 @@ def embedding_bag_op(
     B, nnz = idx.shape
     if B < 1 or nnz < 1:
         raise ValueError(f"need at least one bag of at least one id, got idx {tuple(idx.shape)}")
+    V = table.shape[0]
+    id_limit = row0 + V if id_limit is None else id_limit
+    if row0 < 0 or row0 + V > id_limit:
+        raise ValueError(f"rows [{row0}, {row0 + V}) are not a block of a table of {id_limit}")
     dispatch_device("embedding_bag_op", table=table, idx=idx, weights=weights)
-    return _EmbeddingBag.apply(table, idx, weights)
+    return _EmbeddingBag.apply(table, idx, weights, row0, id_limit)

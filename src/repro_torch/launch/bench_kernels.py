@@ -420,6 +420,40 @@ def embedding_bag_case(table: torch.Tensor, idx: torch.Tensor, weights: Optional
             **embedding_bag_work(table, idx, weights)}
 
 
+def embedding_bag_range_case(table: torch.Tensor, idx: torch.Tensor, ways: int, index: int, *,
+                             flush: Optional[torch.Tensor] = None,
+                             iters: int = KERNEL_ITERS) -> Dict:
+    """`embedding_bag_op` over the row range of block `index` of `table`
+    split by rows `ways` ways (the ids the whole table's, so (ways-1)/ways
+    of them foreign on average), bags of one, held to the bit against the
+    plain version on the same block. With `flush`, also the kernel's and
+    the plain version's times, the whole table's kernel time on the same
+    ids beside them, and the block's work: its distinct rows read once,
+    every id once, the output written once."""
+    V, d = table.shape
+    rows = V // ways
+    block = table[index * rows:(index + 1) * rows]
+    row0 = index * rows
+    call = lambda: eb_ops.embedding_bag_op(block, idx, row0=row0, id_limit=V)  # noqa: E731
+    out, again = call(), call()
+    ref = embedding_bag_ref(block, idx, None, row0, V)
+    local = idx.long() - row0
+    mine = (local >= 0) & (local < rows)
+    rec = {"ways": ways, "index": index, "foreign_share": 1 - float(mine.float().mean()),
+           "ok": bool(torch.equal(out, ref)) and bool(torch.equal(out, again)),
+           "max_abs_err": float((out - ref).abs().max())}
+    if flush is None:
+        return rec
+    B, nnz = idx.shape
+    uniq = int(torch.unique(local[mine]).numel())
+    work = bound(uniq * d * 4 + idx.numel() * 4 + B * d * 4, 2 * int(mine.sum()) * d)
+    return {**rec, "ms": time_ms(call, flush, iters),
+            "plain_ms": time_ms(lambda: embedding_bag_ref(block, idx, None, row0, V), flush,
+                                iters),
+            "whole_table_ms": time_ms(lambda: eb_ops.embedding_bag_op(table, idx), flush, iters),
+            **work, "distinct_rows": uniq}
+
+
 def _check(out: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float) -> Dict:
     err = float((out.float() - ref.float()).abs().max())
     ok = bool(torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol))

@@ -25,6 +25,16 @@ class AbstractMesh(NamedTuple):
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
 
+    def size(self, dim=None) -> int:
+        """Ranks along mesh dim `dim` (an index), or in all: as `DeviceMesh.size`."""
+        return math.prod(self.shape) if dim is None else self.shape[dim]
+
+
+def axis_names(shape) -> Tuple[str, ...]:
+    """The axis names of a mesh of `shape`: ("data", "model") for two dims,
+    ("pod", "data", "model") for three, as the production meshes name them."""
+    return {2: ("data", "model"), 3: ("pod", "data", "model")}[len(shape)]
+
 
 def make_mesh(shape, axis_names, device_type: str = "cuda"):
     """A `DeviceMesh` of `shape` over the default process group, whose world

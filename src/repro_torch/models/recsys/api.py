@@ -1,4 +1,9 @@
-"""Uniform recsys model API: dispatch by cfg.interaction (port of `repro.models.recsys.api`)."""
+"""Uniform recsys model API: dispatch by cfg.interaction (port of `repro.models.recsys.api`).
+
+`rules`, as `repro`'s: `distributed/sharding.adapt_rules(RECSYS_RULES,
+mesh)` of a `DeviceMesh` (with `launch/cells`' overrides for
+`serve_full_mesh` and retrieval), the arguments this rank's blocks of
+their layout; None runs on one rank with whole arguments."""
 from __future__ import annotations
 
 from repro_torch.configs.base import RecSysConfig
@@ -21,13 +26,13 @@ def param_defs(cfg):
     return module_for(cfg).param_defs(cfg)
 
 
-def loss(params, batch, cfg):
-    return module_for(cfg).loss(params, batch, cfg)
+def loss(params, batch, cfg, rules=None):
+    return module_for(cfg).loss(params, batch, cfg, rules)
 
 
-def serve(params, batch, cfg):
-    return module_for(cfg).serve(params, batch, cfg)
+def serve(params, batch, cfg, rules=None):
+    return module_for(cfg).serve(params, batch, cfg, rules)
 
 
-def retrieval(params, query, cand_ids, cfg):
-    return module_for(cfg).retrieval(params, query, cand_ids, cfg)
+def retrieval(params, query, cand_ids, cfg, rules=None):
+    return module_for(cfg).retrieval(params, query, cand_ids, cfg, rules)

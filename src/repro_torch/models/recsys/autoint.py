@@ -12,6 +12,10 @@ The projections are applied with a bare matmul, as in `repro`, so AutoInt
 has no quantized variant: `repro`'s `_interact` (`autoint.py:50-52`)
 raises on the int8 rep dicts `quantize_tree` makes of them, and so does
 this one.
+Every entry point takes `repro`'s `rules` (None: one rank); across ranks
+only the lookups (`embedding.py`) and the loss's mean exchange data, and
+the rest works row by row on this rank's block of the batch (or of the
+candidates), so `repro`'s `constrain`s of its outputs already hold.
 """
 from __future__ import annotations
 
@@ -66,30 +70,31 @@ def _interact(params, e: torch.Tensor, cfg: RecSysConfig) -> torch.Tensor:
     return x
 
 
-def logits(params, batch, cfg: RecSysConfig):
-    e = unified_lookup(params["table"], batch["sparse_idx"], cfg)
+def logits(params, batch, cfg: RecSysConfig, rules=None):
+    e = unified_lookup(params["table"], batch["sparse_idx"], cfg, rules)
     x = _interact(params, e, cfg)
     B = x.shape[0]
     return (x.reshape(B, -1) @ params["w_out"] + params["b_out"])[:, 0]
 
 
-def loss(params, batch, cfg: RecSysConfig):
-    lg = logits(params, batch, cfg)
-    b = bce_with_logits(lg, batch["label"])
+def loss(params, batch, cfg: RecSysConfig, rules=None):
+    lg = logits(params, batch, cfg, rules)
+    b = bce_with_logits(lg, batch["label"], rules)
     return b, {"bce": b}
 
 
-def serve(params, batch, cfg: RecSysConfig):
-    return torch.sigmoid(logits(params, batch, cfg))
+def serve(params, batch, cfg: RecSysConfig, rules=None):
+    return torch.sigmoid(logits(params, batch, cfg, rules))
 
 
-def retrieval(params, query, cand_ids, cfg: RecSysConfig):
+def retrieval(params, query, cand_ids, cfg: RecSysConfig, rules=None):
     """Broadcast the 38 user-field embeddings; swap the candidate field's
     embedding per candidate; full attention stack over [N, F, d]."""
     cand_field = max(range(len(cfg.fields)), key=lambda i: cfg.fields[i].vocab)
     offs = unified_offsets(cfg)
-    e = unified_lookup(params["table"], query["sparse_idx"], cfg)[0]  # [F,d]
-    v_c = _take_rows(params["table"], cand_ids + int(offs[cand_field]))  # [N,d]
+    e = unified_lookup(params["table"], query["sparse_idx"], cfg, rules)[0]  # [F,d]
+    v_c = _take_rows(params["table"], cand_ids + int(offs[cand_field]), rules,
+                     "candidates")  # [N,d], this rank's block
     N = v_c.shape[0]
     eN = e[None].expand(N, *e.shape).clone()
     eN[:, cand_field, :] = v_c

@@ -12,6 +12,10 @@ It runs in the Hopper AUGRU kernel (`kernels/augru`), one launch a call.
 The GRU weights are applied with a bare matmul, as in `repro`, so DIEN has
 no quantized variant: `repro`'s `_gru_cell` (`dien.py:46`) raises on the
 int8 rep dicts `quantize_tree` makes of them.
+Every entry point takes `repro`'s `rules` (None: one rank); across ranks
+only the lookups (`embedding.py`) and the loss's mean exchange data, and
+the rest works row by row on this rank's block of the batch (or of the
+candidates), so `repro`'s `constrain`s of its outputs already hold.
 """
 from __future__ import annotations
 
@@ -70,14 +74,14 @@ def _run_gru(params, name, xs: torch.Tensor, mask: torch.Tensor, g: int):
     return h, torch.stack(hs, dim=1)
 
 
-def _behaviour_emb(params, batch, cfg, hist: bool):
+def _behaviour_emb(params, batch, cfg, hist: bool, rules=None):
     t = params["tables"]
     if hist:
-        it = field_lookup(t, cfg, "hist_item", batch["hist_item"])
-        ca = field_lookup(t, cfg, "hist_category", batch["hist_category"])
+        it = field_lookup(t, cfg, "hist_item", batch["hist_item"], rules)
+        ca = field_lookup(t, cfg, "hist_category", batch["hist_category"], rules)
     else:
-        it = field_lookup(t, cfg, "item", batch["item"])
-        ca = field_lookup(t, cfg, "category", batch["category"])
+        it = field_lookup(t, cfg, "item", batch["item"], rules)
+        ca = field_lookup(t, cfg, "category", batch["category"], rules)
     return torch.cat([it, ca], dim=-1)
 
 
@@ -104,36 +108,37 @@ def _interest(params, hist, mask, cand, cfg):
     return _evolve(params, h1, att, mask)
 
 
-def logits(params, batch, cfg: RecSysConfig):
-    user = field_lookup(params["tables"], cfg, "user", batch["user"])
-    hist = _behaviour_emb(params, batch, cfg, hist=True)
-    cand = _behaviour_emb(params, batch, cfg, hist=False)
+def logits(params, batch, cfg: RecSysConfig, rules=None):
+    user = field_lookup(params["tables"], cfg, "user", batch["user"], rules)
+    hist = _behaviour_emb(params, batch, cfg, True, rules)
+    cand = _behaviour_emb(params, batch, cfg, False, rules)
     mask = torch.arange(hist.shape[1], device=hist.device)[None] < batch["hist_len"][:, None]
     interest = _interest(params, hist, mask, cand, cfg)
     x = torch.cat([user, cand, interest], dim=-1)
     return mlp_apply(params, "tower", x, len(cfg.mlp_dims))[:, 0]
 
 
-def loss(params, batch, cfg: RecSysConfig):
-    lg = logits(params, batch, cfg)
-    b = bce_with_logits(lg, batch["label"])
+def loss(params, batch, cfg: RecSysConfig, rules=None):
+    lg = logits(params, batch, cfg, rules)
+    b = bce_with_logits(lg, batch["label"], rules)
     return b, {"bce": b}
 
 
-def serve(params, batch, cfg: RecSysConfig):
-    return torch.sigmoid(logits(params, batch, cfg))
+def serve(params, batch, cfg: RecSysConfig, rules=None):
+    return torch.sigmoid(logits(params, batch, cfg, rules))
 
 
-def retrieval(params, query, cand_ids, cfg: RecSysConfig):
-    """GRU stage-1 runs once; candidate-dependent AUGRU batched over N."""
+def retrieval(params, query, cand_ids, cfg: RecSysConfig, rules=None):
+    """GRU stage-1 runs once; candidate-dependent AUGRU batched over N
+    (this rank's block of them)."""
     t = params["tables"]
-    user = field_lookup(t, cfg, "user", query["user"])[0]
-    hist = _behaviour_emb(params, query, cfg, hist=True)  # [1,L,du]
+    user = field_lookup(t, cfg, "user", query["user"], rules)[0]
+    hist = _behaviour_emb(params, query, cfg, True, rules)  # [1,L,du]
     L = hist.shape[1]
     mask = torch.arange(L, device=hist.device)[None] < query["hist_len"][:, None]  # [1,L]
 
-    it = _take_rows(t["item"], cand_ids)
-    ca = _take_rows(t["category"], query["cand_category"])
+    it = _take_rows(t["item"], cand_ids, rules, "candidates")
+    ca = _take_rows(t["category"], query["cand_category"], rules, "candidates")
     cand = torch.cat([it, ca], dim=-1)
     N = cand.shape[0]
 

@@ -11,6 +11,10 @@ linear through the compressible-linear dispatch (`mlp_apply`), so the
 quantized variant serves int8 tables and weights, as in `repro`. The
 arithmetic keeps `repro`'s order: masked steps get -1e30 and the softmax
 is f32.
+Every entry point takes `repro`'s `rules` (None: one rank); across ranks
+only the lookups (`embedding.py`) and the loss's mean exchange data, and
+the rest works row by row on this rank's block of the batch (or of the
+candidates), so `repro`'s `constrain`s of its outputs already hold.
 """
 from __future__ import annotations
 
@@ -33,14 +37,14 @@ def param_defs(cfg: RecSysConfig) -> Dict:
     return defs
 
 
-def _behaviour_emb(params, batch, cfg, hist: bool):
+def _behaviour_emb(params, batch, cfg, hist: bool, rules=None):
     t = params["tables"]
     if hist:
-        it = field_lookup(t, cfg, "hist_item", batch["hist_item"])
-        ca = field_lookup(t, cfg, "hist_category", batch["hist_category"])
+        it = field_lookup(t, cfg, "hist_item", batch["hist_item"], rules)
+        ca = field_lookup(t, cfg, "hist_category", batch["hist_category"], rules)
     else:
-        it = field_lookup(t, cfg, "item", batch["item"])
-        ca = field_lookup(t, cfg, "category", batch["category"])
+        it = field_lookup(t, cfg, "item", batch["item"], rules)
+        ca = field_lookup(t, cfg, "category", batch["category"], rules)
     return torch.cat([it, ca], dim=-1)  # [..., 2de]
 
 
@@ -54,39 +58,39 @@ def target_attention(params, hist, cand, hist_mask, cfg):
     return torch.einsum("bl,bld->bd", w, hist)
 
 
-def logits(params, batch, cfg: RecSysConfig):
-    user = field_lookup(params["tables"], cfg, "user", batch["user"])
-    hist = _behaviour_emb(params, batch, cfg, hist=True)  # [B,L,du]
-    cand = _behaviour_emb(params, batch, cfg, hist=False)  # [B,du]
+def logits(params, batch, cfg: RecSysConfig, rules=None):
+    user = field_lookup(params["tables"], cfg, "user", batch["user"], rules)
+    hist = _behaviour_emb(params, batch, cfg, True, rules)  # [B,L,du]
+    cand = _behaviour_emb(params, batch, cfg, False, rules)  # [B,du]
     mask = torch.arange(hist.shape[1], device=hist.device)[None] < batch["hist_len"][:, None]
     pooled = target_attention(params, hist, cand, mask, cfg)
     x = torch.cat([user, cand, pooled], dim=-1)
     return mlp_apply(params, "tower", x, len(cfg.mlp_dims))[:, 0]
 
 
-def loss(params, batch, cfg: RecSysConfig):
-    lg = logits(params, batch, cfg)
-    b = bce_with_logits(lg, batch["label"])
+def loss(params, batch, cfg: RecSysConfig, rules=None):
+    lg = logits(params, batch, cfg, rules)
+    b = bce_with_logits(lg, batch["label"], rules)
     return b, {"bce": b}
 
 
-def serve(params, batch, cfg: RecSysConfig):
-    return torch.sigmoid(logits(params, batch, cfg))
+def serve(params, batch, cfg: RecSysConfig, rules=None):
+    return torch.sigmoid(logits(params, batch, cfg, rules))
 
 
-def retrieval(params, query, cand_ids, cfg: RecSysConfig):
+def retrieval(params, query, cand_ids, cfg: RecSysConfig, rules=None):
     """One user, N candidate items: history encoded once, target attention
     batched over candidates. The candidates' rows are gathered from any
     table representation (`repro` takes them with a bare `jnp.take`, which
     serves f32 tables only)."""
     t = params["tables"]
-    user = field_lookup(t, cfg, "user", query["user"])[0]  # [de]
-    hist = _behaviour_emb(params, query, cfg, hist=True)[0]  # [L,du]
+    user = field_lookup(t, cfg, "user", query["user"], rules)[0]  # [de]
+    hist = _behaviour_emb(params, query, cfg, True, rules)[0]  # [L,du]
     L = hist.shape[0]
     mask = torch.arange(L, device=hist.device)[None] < query["hist_len"][:, None]  # [1,L]
 
-    it = _take_rows(t["item"], cand_ids)
-    ca = _take_rows(t["category"], query["cand_category"])
+    it = _take_rows(t["item"], cand_ids, rules, "candidates")
+    ca = _take_rows(t["category"], query["cand_category"], rules, "candidates")
     cand = torch.cat([it, ca], dim=-1)  # [N,du]
 
     N = cand.shape[0]

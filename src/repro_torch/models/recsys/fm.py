@@ -7,6 +7,12 @@ an EmbeddingBag of the example's 39 ids into the 1-wide table, both through
 the EmbeddingBag kernel for an f32 table. The second-order term goes
 through the Hopper FM interaction kernel (`kernels/fm_interaction`), whose
 plain version is `repro`'s `fm_interaction`.
+
+Every entry point takes `repro`'s `rules` (None: one rank); across ranks
+only the lookups (`embedding.py`: the 1-wide table is split by rows as the
+factors are) and the loss's mean exchange data, and the interaction works
+row by row on this rank's block of the batch (or of the candidates), so
+`repro`'s `constrain`s of its outputs already hold.
 """
 from __future__ import annotations
 
@@ -38,26 +44,26 @@ def fm_interaction(e: torch.Tensor) -> torch.Tensor:
     return fm_interaction_op(e.contiguous())
 
 
-def logits(params, batch, cfg: RecSysConfig):
+def logits(params, batch, cfg: RecSysConfig, rules=None):
     idx = batch["sparse_idx"]  # [B, F] local ids
-    e = unified_lookup(params["table"], idx, cfg)  # [B,F,k]
+    e = unified_lookup(params["table"], idx, cfg, rules)  # [B,F,k]
     offs = torch.as_tensor(unified_offsets(cfg), dtype=torch.int32, device=idx.device)
     rows = idx + offs[None, :]
-    first = embedding_bag(params["linear"], rows)[:, 0]  # [B]
+    first = embedding_bag(params["linear"], rows, rules=rules)[:, 0]  # [B]
     return params["bias"] + first + fm_interaction(e)
 
 
-def loss(params, batch, cfg: RecSysConfig):
-    lg = logits(params, batch, cfg)
-    b = bce_with_logits(lg, batch["label"])
+def loss(params, batch, cfg: RecSysConfig, rules=None):
+    lg = logits(params, batch, cfg, rules)
+    b = bce_with_logits(lg, batch["label"], rules)
     return b, {"bce": b}
 
 
-def serve(params, batch, cfg: RecSysConfig):
-    return torch.sigmoid(logits(params, batch, cfg))
+def serve(params, batch, cfg: RecSysConfig, rules=None):
+    return torch.sigmoid(logits(params, batch, cfg, rules))
 
 
-def retrieval(params, query, cand_ids, cfg: RecSysConfig):
+def retrieval(params, query, cand_ids, cfg: RecSysConfig, rules=None):
     """Score one query against N candidates of the designated candidate
     field (largest-vocab field). FM factorizes: score(c) = const +
     ⟨Σ_{f≠c} v_f, v_c⟩ + w_c, so it is one [N,k] @ [k] batched dot."""
@@ -65,13 +71,13 @@ def retrieval(params, query, cand_ids, cfg: RecSysConfig):
     offs = unified_offsets(cfg)
 
     idx = query["sparse_idx"]  # [1, F] — candidate slot ignored
-    e = unified_lookup(params["table"], idx, cfg)[0]  # [F,k]
+    e = unified_lookup(params["table"], idx, cfg, rules)[0]  # [F,k]
     mask = torch.arange(e.shape[0], device=e.device) != cand_field
     e_user = torch.sum(e * mask[:, None], dim=0)  # [k]
 
     rows = cand_ids + int(offs[cand_field])
-    v_c = _take_rows(params["table"], rows)  # [N,k]
-    w_c = _take_rows(params["linear"], rows)[:, 0]
+    v_c = _take_rows(params["table"], rows, rules, "candidates")  # [N,k], this rank's block
+    w_c = _take_rows(params["linear"], rows, rules, "candidates")[:, 0]
 
     dot = v_c @ e_user
     # (e_u+v_c)² − (sq_u+v_c²) = (e_u²−sq_u) + 2⟨e_u,v_c⟩ — v_c² cancels.

@@ -1,11 +1,15 @@
 """Small shared layers for the recsys towers (port of `repro.models.recsys.rec_layers`)."""
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.lightweight import linear
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import rule_groups
 from repro_torch.models.common import ParamDef
 
 
@@ -36,8 +40,18 @@ def mlp_apply(params: Dict, name: str, x: torch.Tensor, n_layers: int) -> torch.
     return linear(params[f"{name}_wout"], x) + params[f"{name}_bout"]
 
 
-def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Numerically stable binary cross entropy."""
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor, rules=None) -> torch.Tensor:
+    """Numerically stable binary cross entropy, the mean over the batch.
+    Under `rules` whose "batch" splits the batch over mesh dims, `logits`
+    and `labels` are this rank's block, and the mean is the global batch's,
+    as `repro`'s `jnp.mean` of a batch-split array: the local sum, summed
+    over those dims (`sum_forward`: every rank then holds the loss), over
+    the global count."""
     z = logits.to(torch.float32)
     y = labels.to(torch.float32)
-    return torch.mean(torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-z.abs())))
+    per = torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-z.abs()))
+    groups = rule_groups(rules, "batch")
+    if not groups:
+        return torch.mean(per)
+    n = per.numel() * math.prod(dist.get_world_size(g) for g in groups)
+    return collectives.sum_forward(torch.sum(per), groups) / n

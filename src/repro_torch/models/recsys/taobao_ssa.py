@@ -19,6 +19,12 @@ config carries a non-zero `attn_window` attribute (`cfg_window`), as in
 hand-written local-attention kernel (`kernels/local_attention`) with the
 history's key mask, except where the caller collects the attention
 probabilities (the C3 distillation KL), which the kernel does not return.
+
+Every entry point takes `repro`'s `rules` (None: one rank); across ranks
+only the lookups (`embedding.py`) and the loss's mean exchange data: the
+encoder and the tower work row by row on this rank's block of the batch
+(or of the candidates), so `repro`'s `constrain`s of their outputs to
+("batch",) and ("candidates", ...) already hold.
 """
 from __future__ import annotations
 
@@ -96,11 +102,11 @@ def _encoder_block(p, x: torch.Tensor, mask: torch.Tensor, n_heads: int, *, wind
     return x, probs
 
 
-def encode_history(params, batch, cfg: RecSysConfig, collect_attn: bool = False):
+def encode_history(params, batch, cfg: RecSysConfig, rules=None, collect_attn: bool = False):
     """-> (pooled [B,d], attn list per layer)."""
     t = params["tables"]
-    it = field_lookup(t, cfg, "hist_item", batch["hist_item"])
-    ca = field_lookup(t, cfg, "hist_category", batch["hist_category"])
+    it = field_lookup(t, cfg, "hist_item", batch["hist_item"], rules)
+    ca = field_lookup(t, cfg, "hist_category", batch["hist_category"], rules)
     x = it + ca + params["pos"][None]
     L = x.shape[1]
     hist_len = batch["hist_len"]
@@ -129,40 +135,40 @@ def _tower_logits(params, user, cand, pooled, cfg):
     return mlp_apply(params, "tower", x, len(cfg.mlp_dims))[:, 0]
 
 
-def logits_and_attn(params, batch, cfg: RecSysConfig, collect_attn: bool = False):
+def logits_and_attn(params, batch, cfg: RecSysConfig, rules=None, collect_attn: bool = False):
     t = params["tables"]
-    user = field_lookup(t, cfg, "user", batch["user"])
-    it = field_lookup(t, cfg, "item", batch["item"])
-    ca = field_lookup(t, cfg, "category", batch["category"])
+    user = field_lookup(t, cfg, "user", batch["user"], rules)
+    it = field_lookup(t, cfg, "item", batch["item"], rules)
+    ca = field_lookup(t, cfg, "category", batch["category"], rules)
     cand = it + ca
-    pooled, attns = encode_history(params, batch, cfg, collect_attn)
+    pooled, attns = encode_history(params, batch, cfg, rules, collect_attn)
     return _tower_logits(params, user, cand, pooled, cfg), attns
 
 
-def logits(params, batch, cfg: RecSysConfig):
-    return logits_and_attn(params, batch, cfg)[0]
+def logits(params, batch, cfg: RecSysConfig, rules=None):
+    return logits_and_attn(params, batch, cfg, rules)[0]
 
 
-def loss(params, batch, cfg: RecSysConfig):
-    lg = logits(params, batch, cfg)
-    b = bce_with_logits(lg, batch["label"])
+def loss(params, batch, cfg: RecSysConfig, rules=None):
+    lg = logits(params, batch, cfg, rules)
+    b = bce_with_logits(lg, batch["label"], rules)
     return b, {"bce": b}
 
 
-def serve(params, batch, cfg: RecSysConfig):
-    return torch.sigmoid(logits(params, batch, cfg))
+def serve(params, batch, cfg: RecSysConfig, rules=None):
+    return torch.sigmoid(logits(params, batch, cfg, rules))
 
 
-def retrieval(params, query, cand_ids, cfg: RecSysConfig):
+def retrieval(params, query, cand_ids, cfg: RecSysConfig, rules=None):
     """History encoding is candidate-independent here — encode once, then
-    batched tower over N candidates."""
+    batched tower over N candidates (this rank's block of them)."""
     t = params["tables"]
-    user = field_lookup(t, cfg, "user", query["user"])[0]
-    pooled, _ = encode_history(params, query, cfg)
+    user = field_lookup(t, cfg, "user", query["user"], rules)[0]
+    pooled, _ = encode_history(params, query, cfg, rules)
     pooled = pooled[0]
 
-    it = _take_rows(t["item"], cand_ids)
-    ca = _take_rows(t["category"], query["cand_category"])
+    it = _take_rows(t["item"], cand_ids, rules, "candidates")
+    ca = _take_rows(t["category"], query["cand_category"], rules, "candidates")
     cand = it + ca
     N = cand.shape[0]
     return _tower_logits(

@@ -389,3 +389,10 @@ def decode(params, cache, token, pos, cfg: LMConfig, stats=None):
 def cache_shape(cfg: LMConfig, batch: int, seq_len: int):
     hd = cfg.resolved_head_dim
     return (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, hd)
+
+
+def cache_axes(cfg: LMConfig, long_context: bool):
+    """The KV cache's logical axes: split-K over the sequence at decode,
+    over ("data", "model") for a 500k context of batch 1."""
+    kv = "long_kv_seq" if long_context else "kv_seq"
+    return ("layers", "batch", kv, "kv_heads", "head_dim")

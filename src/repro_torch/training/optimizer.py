@@ -14,7 +14,10 @@ keeps `repro`'s block-wise int8 moments: blocks of 256 along the last axis,
 as `jnp.round`). `repro` maps a leaf of rank 3 or more over its first axis
 (`lax.map`) to save memory; every element's arithmetic is the same either
 way, so the port updates the whole leaf at once. As `repro`'s, it has no
-last axis to block a 0-d leaf along (FM's bias) and raises there.
+last axis to block a 0-d leaf along (FM's bias) and raises there. Its
+blocks of 256 are not elementwise: a rank's block of a leaf split by rows
+would block differently from `repro`'s whole leaf, so a train step across
+ranks refuses it (`Optimizer.elementwise`).
 
 `abstract_state` and `state_pspecs` are the state's shapes and layout for
 specs and sizes without memory: `init` on "meta" tensors, and the params'
@@ -33,6 +36,9 @@ from repro_torch.models.common import float_tree, tree_leaves, tree_map
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], Tuple[Any, Any]]  # (grads, state, params)
+    # each element's update reads only that element (and scalars such as
+    # the step count), so a rank can update its block of a split leaf alone
+    elementwise: bool = True
 
 
 def _zeros(params):
@@ -176,7 +182,7 @@ def adam8bit(
         pick = lambda i: tree_map(lambda g, o: o[i], grads, out)  # noqa: E731
         return pick(0), {"m": pick(1), "v": pick(2), "count": count}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, elementwise=False)
 
 
 def get_optimizer(name: str, lr: float = 1e-4, **kw) -> Optimizer:

@@ -8,6 +8,18 @@ opt_state, batch) -> (params, opt_state, metrics)`, functional as
 so their gradients enter the global-norm clip); integer leaves pass through
 unchanged. Microbatching, the clip and the update keep `repro`'s order of
 operations. There is no `jit`: PyTorch runs eagerly.
+
+Across ranks (`rules` of a `DeviceMesh` of more than one rank, with the
+params' PartitionSpecs), each rank holds its blocks of the params, the
+optimizer state and the batch, as `repro`'s `jit` `in_shardings` lay them
+out, and `loss_fn` is the loss under the same rules (a global-batch mean:
+`rec_layers.bce_with_logits`). Each rank's backward forms its batch
+block's part of every gradient; the parts are summed over the mesh dims
+that split the batch (`rules["batch"]`), and a leaf split by rows keeps
+its block. The clip's norm counts each element once over the mesh: a
+leaf's squares are summed over the dims its spec splits it over. The
+update is each rank's on its blocks, so the optimizer must be elementwise
+(`Optimizer.elementwise`: SGD and AdamW, not adam8bit).
 """
 from __future__ import annotations
 
@@ -15,9 +27,51 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.collectives import sum_in_place
+from repro_torch.distributed.sharding import entry_axes, mesh_groups, rule_groups
 from repro_torch.models.common import (
     float_tree, merge_tree, tree_from_leaves, tree_leaves, tree_map)
 from repro_torch.training.optimizer import Optimizer
+
+
+def _mesh_of(rules):
+    """The mesh of `rules` where it has more than one rank, else None."""
+    mesh = None if rules is None else rules.get("__mesh__")
+    return mesh if mesh is not None and mesh.size() > 1 else None
+
+
+def _spec_at(specs, path):
+    for k in path:
+        specs = specs[k]
+    return specs
+
+
+def _grads(loss_fn, params, paths, leaves, batch):
+    """This rank's part of the gradient of every float leaf in `leaves`."""
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    loss, metrics = loss_fn(merge_tree(params, tree_from_leaves(zip(paths, live))), batch)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def _sum_parts(grads, rules):
+    """The ranks' parts of each gradient summed over the mesh dims that
+    split the batch, in place; a leaf split by rows keeps its block."""
+    with torch.no_grad():
+        for g in rule_groups(rules, "batch") if _mesh_of(rules) is not None else ():
+            grads = [sum_in_place(x.contiguous(), g) for x in grads]
+    return grads
+
+
+def value_and_grad(loss_fn: Callable, params, batch, rules=None):
+    """(loss, metrics, grads): `loss_fn(params, batch)` and the gradient of
+    every float leaf of `params` (a tree of those leaves). Across the ranks
+    of `rules`' mesh, the gradients are the whole batch's, each rank's
+    block of each leaf, as `jax.value_and_grad` under `jit` gives them."""
+    paths, leaves = zip(*tree_leaves(float_tree(params)))
+    loss, metrics, grads = _grads(loss_fn, params, paths, leaves, batch)
+    return loss, metrics, tree_from_leaves(zip(paths, _sum_parts(grads, rules)))
 
 
 def make_train_step(
@@ -26,17 +80,32 @@ def make_train_step(
     *,
     grad_accum: int = 1,
     grad_clip: float = 1.0,
+    rules=None,
+    param_specs=None,
 ) -> Callable:
-    """loss_fn(params, batch) -> (scalar, metrics dict)."""
+    """loss_fn(params, batch) -> (scalar, metrics dict). `rules` and
+    `param_specs` (the params' PartitionSpec tree under those rules) make
+    the step one across the ranks of `rules["__mesh__"]` (see the module's
+    docstring); a mesh of one rank, or none, is the one-rank step. A
+    step across ranks refuses, when called, an optimizer that is not
+    elementwise and `grad_accum` > 1."""
 
-    def one_grad(params, paths, leaves, batch):
-        live = [p.detach().requires_grad_(True) for p in leaves]
-        loss, metrics = loss_fn(merge_tree(params, tree_from_leaves(zip(paths, live))), batch)
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    def check(mesh):
+        if not optimizer.elementwise:
+            raise ValueError("this optimizer updates blocks of 256 along a leaf's last axis "
+                             "(adam8bit), which a rank's block of a split leaf would cut "
+                             "differently from the whole leaf's: a train step across ranks "
+                             "takes an elementwise one (sgd, adamw)")
+        if grad_accum > 1:
+            raise ValueError("grad_accum splits the global batch into microbatches; a rank "
+                             "holds a block of it, so a step across ranks takes grad_accum=1")
+        if param_specs is None:
+            raise ValueError("a train step across ranks needs the params' PartitionSpecs")
 
     def train_step(params, opt_state, batch):
+        mesh = _mesh_of(rules)
+        if mesh is not None:
+            check(mesh)
         paths, leaves = zip(*tree_leaves(float_tree(params)))
         if grad_accum > 1:
             # microbatch over the leading batch axis
@@ -45,18 +114,24 @@ def make_train_step(
             for i in range(grad_accum):
                 mb = {k: v.reshape((grad_accum, v.shape[0] // grad_accum) + v.shape[1:])[i]
                       for k, v in batch.items()}
-                loss_i, metrics, grads_i = one_grad(params, paths, leaves, mb)
+                loss_i, metrics, grads_i = _grads(loss_fn, params, paths, leaves, mb)
                 grads = [a + g for a, g in zip(grads, grads_i)]
                 loss = loss + loss_i
             loss = loss / grad_accum
             grads = [g / grad_accum for g in grads]
-        else:
-            loss, metrics, grads = one_grad(params, paths, leaves, batch)
+        else:  # `check` has refused grad_accum > 1 across ranks
+            loss, metrics, tree = value_and_grad(loss_fn, params, batch, rules)
+            grads = [g for _, g in tree_leaves(tree)]
 
         with torch.no_grad():
             if grad_clip:
-                gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                                       for g in grads))
+                squares = [torch.sum(torch.square(g.to(torch.float32))) for g in grads]
+                if mesh is not None:  # a split leaf's squares, summed over its blocks
+                    for i, path in enumerate(paths):
+                        spec = _spec_at(param_specs, path)
+                        for group in mesh_groups(mesh, [a for e in spec for a in entry_axes(e)]):
+                            squares[i] = sum_in_place(squares[i], group)
+                gnorm = torch.sqrt(sum(squares))
                 scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
                 # in f32, then back: a bf16 gradient times the f32 scale
                 # promotes in `repro`

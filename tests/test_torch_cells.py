@@ -1,0 +1,103 @@
+"""`repro_torch.launch.cells` against `repro.launch.cells`, on the CPU.
+
+Every cell of `all_cells()` (the 40 assigned (arch, shape) pairs), the
+paper's taobao_ssa at its four shapes (which `build_cell` builds and
+`all_cells` leaves out) and the variant cells of `tests/test_cells.py`,
+each on both production meshes as an abstract mesh (`repro`'s on
+`jax.sharding.AbstractMesh`): the name, `meta` and `donate` equal
+`repro`'s, every arg lies on the "meta" device (no storage) with
+`repro`'s shape and dtype, and the specs of every arg and output equal
+`repro`'s shardings' specs, leaf for leaf. An LM or GNN cell's `fn`, and
+a recsys train cell's under adam8bit, refuse a mesh of two gloo ranks and
+name why.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+from jax.sharding import AbstractMesh as JaxAbstractMesh  # noqa: E402
+
+import torch_ranks  # noqa: E402
+import torch_workers  # noqa: E402,F401
+from repro.launch import cells as jcells  # noqa: E402
+from repro_torch.configs.shapes import RECSYS_SHAPES  # noqa: E402
+from repro_torch.distributed.sharding import PartitionSpec  # noqa: E402
+from repro_torch.launch import cells  # noqa: E402
+from repro_torch.launch.mesh import PRODUCTION_SHAPES, AbstractMesh  # noqa: E402
+
+MESHES = {"16x16": PRODUCTION_SHAPES[False], "2x16x16": PRODUCTION_SHAPES[True]}
+# tests/test_cells.py's variant cells: (arch, shape, overrides)
+VARIANTS = [
+    ("autoint", "serve_bulk", {"quantized": True, "serve_full_mesh": True}),
+    ("llama4_maverick_400b_a17b", "train_4k", {"pad_vocab": True}),
+    ("llama4_maverick_400b_a17b", "train_4k", {"flash_remat": True, "capacity_factor": 1.0}),
+    ("nequip", "ogb_products", {"full_mesh_graph": True, "hoist_gathers": True}),
+    ("yi_6b", "decode_32k", {"int8_serve": True}),
+    ("yi_6b", "train_4k", {"train_layout": "tp"}),
+]
+CELLS = ([(a, s, None) for a, s in cells.all_cells()]
+         + [("taobao_ssa", s, None) for s in RECSYS_SHAPES] + VARIANTS)
+
+
+def _leaves(tree):
+    """A port tree's leaves in `jax.tree.leaves` order: dicts by sorted
+    key, tuples in order; a PartitionSpec is a leaf."""
+    if isinstance(tree, PartitionSpec) or not isinstance(tree, (dict, tuple, list)):
+        return [tree]
+    items = [tree[k] for k in sorted(tree)] if isinstance(tree, dict) else list(tree)
+    return [leaf for item in items for leaf in _leaves(item)]
+
+
+def _canon(spec):
+    """A spec as a plain tuple, a one-name tuple entry as the name, trailing
+    Nones dropped."""
+    out = [e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in tuple(spec)]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def test_exactly_40_cells_as_repros():
+    got = cells.all_cells()
+    assert got == jcells.all_cells()
+    assert len(got) == 40 and len({a for a, _ in got}) == 10
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch,shape,overrides", CELLS,
+                         ids=[f"{a}:{s}" + ("+" + "+".join(o) if o else "") for a, s, o in CELLS])
+def test_cell_equals_repros(arch, shape, overrides, mesh):
+    dims, names = MESHES[mesh]
+    jcell = jcells.build_cell(arch, shape, JaxAbstractMesh(dims, names), overrides=overrides)
+    cell = cells.build_cell(arch, shape, AbstractMesh(dims, names), overrides=overrides)
+    assert (cell.name, cell.meta, tuple(cell.donate)) == (jcell.name, jcell.meta,
+                                                          tuple(jcell.donate))
+    args, jargs = _leaves(cell.args), jax.tree.leaves(jcell.args)
+    assert len(args) == len(jargs)
+    for a, j in zip(args, jargs):
+        assert a.device.type == "meta"
+        assert (tuple(a.shape), str(a.dtype).split(".")[-1]) == (tuple(j.shape),
+                                                                 np.dtype(j.dtype).name)
+    for mine, theirs in ((cell.in_specs, jcell.in_shardings),
+                         (cell.out_specs, jcell.out_shardings)):
+        specs, jspecs = _leaves(mine), jax.tree.leaves(theirs)
+        assert [_canon(s) for s in specs] == [_canon(j.spec) for j in jspecs]
+
+
+def test_lm_and_gnn_cells_and_adam8bit_refuse_two_ranks(tmp_path):
+    """The LM and GNN forwards are not split across ranks, and adam8bit's
+    blocks of 256 would cut a rank's block of a split leaf differently
+    from the whole leaf's: each `fn` refuses the (1, 2) mesh and says why."""
+    cases = [("yi_6b", "train_4k", "adamw"), ("yi_6b", "prefill_32k", "adamw"),
+             ("yi_6b", "decode_32k", "adamw"), ("nequip", "molecule", "adamw"),
+             ("taobao_ssa", "train_batch", "adam8bit")]
+    ranks = torch_ranks.run_ranks(torch_ranks.refuse_cell_rank, 2, tmp_path, cases)
+    for rank in ranks:
+        for (arch, shape, optimizer), msg in zip(cases, rank):
+            assert msg is not None, (arch, shape)
+            if optimizer == "adam8bit":
+                assert "blocks of 256" in msg and "elementwise" in msg
+            else:
+                assert "mesh of one rank" in msg and "has 2" in msg, (arch, shape)

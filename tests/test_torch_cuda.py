@@ -38,7 +38,11 @@ Tolerances:
 - int8_matmul: the int32 accumulator equal to the plain version's (unit
   scales make it the output, exact in f32 below 2^24), the Pallas
   epilogue of it to the bit, `repro`'s ref within rtol 1e-6, atol 1e-4;
-  two launches the same bits, under every tile and grid.
+  two launches the same bits, under every tile and grid;
+- embedding_bag's row range: as embedding_bag above, against the plain
+  version on the same block; the block's table gradient the CPU's bits;
+- a recsys serve call through a one-rank NCCL mesh (`launch/cells`): the
+  plain call's bits and launches.
 """
 import pytest
 
@@ -1310,3 +1314,93 @@ def test_compress_allreduce_mean_on_card_gives_the_cpus_bits(nccl_mesh, shape):
     mean, res = gc.compress_allreduce_mean(g.cuda(), r.cuda(), dist.group.WORLD)
     cmean, cres = gc.compress_allreduce_mean(g, r)
     assert torch.equal(mean.cpu(), cmean) and torch.equal(res.cpu(), cres)
+
+
+# The kernel's row range (a block of a table split by rows across ranks):
+# against the plain version on the same block, bags of one exactly, else
+# within 1e-5 of the largest output; an id outside the block reads no row
+# (a block of NaN rows and only foreign ids gives zeros); the table
+# gradient of the block on the card is the CPU's to the bit.
+
+RANGE_SHAPES = [(512, 1, 64), (51200, 1, 18), (512, 39, 1), (19968, 1, 10), (512, 100, 64),
+                (37, 5, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nnz,d", RANGE_SHAPES)
+@pytest.mark.parametrize("ways,index", [(2, 0), (2, 1), (4, 1), (4, 3)])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_embedding_bag_row_range_matches_plain_version_on_card(cuda_device, B, nnz, d, ways,
+                                                               index, weighted):
+    table, idx, w = _inputs(B, nnz, d, seed=B + index)
+    V = table.shape[0] // ways
+    block = torch.from_numpy(table[index * V:(index + 1) * V]).to(cuda_device)
+    t_idx = torch.from_numpy(idx).to(cuda_device)
+    t_w = torch.from_numpy(w).to(cuda_device) if weighted else None
+    before = ops.launches
+    out = ops.embedding_bag_op(block, t_idx, t_w, row0=index * V, id_limit=table.shape[0])
+    again = ops.embedding_bag_op(block, t_idx, t_w, row0=index * V, id_limit=table.shape[0])
+    torch.cuda.synchronize()
+    assert ops.launches == before + 2 and torch.equal(out, again)
+    ref = embedding_bag_ref(block, t_idx, t_w, index * V, table.shape[0])
+    if nnz == 1:
+        assert torch.equal(out, ref)
+    else:
+        assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    # the table gradient: the CPU's bits, the block's rows only
+    dy = torch.from_numpy(np.random.default_rng(1).normal(size=(B, d)).astype(np.float32))
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        t = block.to(dev).detach().requires_grad_()
+        o = ops.embedding_bag_op(t, t_idx.to(dev), None if t_w is None else t_w.to(dev),
+                                 row0=index * V, id_limit=table.shape[0])
+        (o * dy.to(dev)).sum().backward()
+        grads.append(t.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nnz,d", [(512, 1, 64), (512, 39, 1), (300, 7, 10)])
+def test_embedding_bag_row_range_reads_no_row_of_a_foreign_id_on_card(cuda_device, B, nnz, d):
+    block = torch.full((1024, d), float("nan"), device=cuda_device)
+    idx = torch.randint(0, 1024, (B, nnz), dtype=torch.int32, device=cuda_device)
+    for row0, ids in ((1024, idx), (0, idx + 1024)):  # every id in the other block
+        out = ops.embedding_bag_op(block, ids, row0=row0, id_limit=2048)
+        torch.cuda.synchronize()
+        assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["taobao_ssa", "fm", "din", "dien", "autoint"])
+def test_recsys_serve_through_a_one_rank_nccl_mesh_is_the_plain_call_on_card(nccl_mesh, arch):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.shapes import RecSysShape
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models.common import init_params
+    from repro_torch.models.recsys import api
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(
+        cfg, fields=tuple(dataclasses.replace(f, vocab=min(f.vocab, 5000)) for f in cfg.fields))
+    cell = build_cell(arch, "serve_p99", nccl_mesh, cfg=cfg,
+                      shape=RecSysShape("serve_p99", 256, "serve"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(api.param_defs(cfg), gen, "cuda")
+    batch = {}
+    for k, a in cell.args[1].items():
+        top = {"user": "user", "item": "item", "category": "category", "hist_item": "item",
+               "hist_category": "category"}.get(k)
+        vocab = (min(f.vocab for f in cfg.fields) if k == "sparse_idx" else
+                 cfg.seq_len + 1 if k == "hist_len" else
+                 {f.name: f.vocab for f in cfg.fields}[top])
+        batch[k] = torch.randint(1 if k == "hist_len" else 0, vocab, a.shape, generator=gen,
+                                 device="cuda", dtype=torch.int32)
+    runs = []
+    for fn in (lambda: cell.fn(params, batch), lambda: api.serve(params, batch, cfg)):
+        before = ops.launches
+        runs.append((fn(), ops.launches - before))
+    torch.cuda.synchronize()
+    (mesh_out, mesh_launches), (plain_out, plain_launches) = runs
+    assert torch.equal(mesh_out, plain_out) and mesh_launches == plain_launches > 0

@@ -322,3 +322,67 @@ def test_the_split_order_is_within_the_tolerance_and_exact_for_bags_of_one(split
         assert torch.equal(got, ref)
     else:
         assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+# ---------------------------------------------------------------- row range
+
+RANGES = [(0, 128), (128, 128), (384, 116)]  # (row0, rows) blocks of a 500-row table
+
+
+@pytest.mark.parametrize("row0,rows", RANGES)
+@pytest.mark.parametrize("B,nnz,d", SHAPES)
+@pytest.mark.parametrize("weighted", [True, False])
+def test_row_range_is_repros_bag_over_the_ids_in_range(row0, rows, B, nnz, d, weighted):
+    """The block [row0, row0 + rows) of a 500-row table: `repro`'s
+    `embedding_bag_ref` over the ids in the block (weight 0 elsewhere), a
+    bag with none of them 0; summed over the blocks that tile the table,
+    the whole table's bag (each id in one block: bags of one exactly)."""
+    table, idx, w = _inputs(B, nnz, d, seed=row0 + B)
+    w = w if weighted else np.ones_like(w)
+    mine = (idx >= row0) & (idx < row0 + rows)
+    ref = jax_ref(jnp.asarray(table), jnp.asarray(idx), jnp.asarray(w * mine))
+    t_w = torch.from_numpy(w) if weighted else None
+    block = torch.from_numpy(table[row0:row0 + rows])
+    out = ops.embedding_bag_op(block, torch.from_numpy(idx), t_w, row0=row0, id_limit=500)
+    _check(ref, out, nnz)
+    assert torch.equal(out[torch.from_numpy(~mine.any(axis=1))], torch.zeros(1, d).expand(
+        int((~mine.any(axis=1)).sum()), d))
+    tiles = [(0, 100), (100, 300), (400, 100)]
+    whole = sum(ops.embedding_bag_op(torch.from_numpy(table[a:a + n]), torch.from_numpy(idx), t_w,
+                                     row0=a, id_limit=500) for a, n in tiles)
+    _check(embedding_bag_ref(torch.from_numpy(table), torch.from_numpy(idx), t_w), whole, nnz)
+
+
+def test_row_range_reads_no_row_of_an_id_outside_it():
+    """The plain version reads the block's rows only: a block of NaN rows
+    past the ids' range leaves every output finite, and an id outside the
+    whole table raises as the kernel traps."""
+    block = torch.full((64, 8), float("nan"))
+    idx = torch.tensor([[0, 5, 63], [64, 100, 127]], dtype=torch.int32)
+    out = ops.embedding_bag_op(block, idx, row0=128, id_limit=256)
+    assert torch.equal(out, torch.zeros(2, 8))
+    with pytest.raises(IndexError):
+        ops.embedding_bag_op(block, idx + 200, row0=128, id_limit=256)
+    with pytest.raises(ValueError, match="not a block"):
+        ops.embedding_bag_op(block, idx, row0=200, id_limit=256)
+
+
+def test_row_range_table_gradient_adds_only_its_rows_in_batch_order():
+    """The block [16, 24) of a 40-row table: each of its rows' gradient is
+    its ids' terms added from the first to the last (the same bits every
+    time), and an id outside the block adds to no row."""
+    rng = np.random.default_rng(5)
+    block = torch.from_numpy(rng.normal(size=(8, 4)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 40, (64, 9)).astype(np.int32))
+    rows = torch.from_numpy(rng.normal(size=(64 * 9, 4)).astype(np.float32))
+    want = torch.zeros_like(block)
+    for i, v in enumerate(idx.reshape(-1).tolist()):
+        if 16 <= v < 24:
+            want[v - 16] = want[v - 16] + rows[i]
+    for _ in range(3):
+        assert torch.equal(ops._table_grad(block, idx, rows, 16, True), want)
+    t = block.clone().requires_grad_()
+    dy = torch.from_numpy(rng.normal(size=(64, 4)).astype(np.float32))
+    (ops.embedding_bag_op(t, idx, row0=16, id_limit=40) * dy).sum().backward()
+    assert torch.equal(t.grad, ops._table_grad(block, idx, dy[:, None, :].expand(64, 9, 4)
+                                               .reshape(-1, 4), 16, True))

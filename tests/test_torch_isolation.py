@@ -59,6 +59,7 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
             "repro_torch.models.gnn.sampler", "repro_torch.configs.nequip"} <= walked
     assert {"repro_torch.distributed.sharding", "repro_torch.distributed.grad_compression",
             "repro_torch.launch.mesh"} <= walked
+    assert {"repro_torch.distributed.collectives", "repro_torch.launch.cells"} <= walked
 
 
 _FORBIDDEN = re.compile(

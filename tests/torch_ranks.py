@@ -271,3 +271,102 @@ def mesh_rank(rank, world):
             "constrained_whole": bool(torch.equal(moved.full_tensor(), t)),
             "plain_untouched": constrain(t, ("fsdp", None), rules) is t,
             "transformer_same_bits": same}
+
+
+def spec_tree(tree, specs):
+    """`specs` (a PartitionSpec tree) stretched over `tree`: a leaf of
+    `tree` under a spec takes it; a rep dict where `specs` has one spec
+    ({"w","mask"}, {"q","s"}, a "block_mask") gives each of its leaves that
+    spec, as `repro`'s layout of a pruned or quantized linear keeps its
+    weight's."""
+    if isinstance(tree, dict) and isinstance(specs, dict):
+        return {k: spec_tree(v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: spec_tree(v, specs) for k, v in tree.items()}
+    return specs
+
+
+def cut(tree, specs, mesh, coord):
+    """This rank's blocks (`block_slices`) of a tree of whole numpy arrays
+    laid out by a matching spec tree, as CPU tensors."""
+    from repro_torch.distributed.sharding import block_slices
+    from repro_torch.models.common import tensor_from_numpy
+
+    if isinstance(tree, dict):
+        return {k: cut(v, specs[k], mesh, coord) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return tensor_from_numpy(np.array(a[block_slices(a.shape, specs, mesh, coord)], order="C"))
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_numpy_tree(v) for v in tree)
+    return to_numpy(tree)
+
+
+def recsys_rank(rank, world, mesh_shapes, cases):
+    """Each case through `launch/cells.build_cell` on each of this world's
+    meshes of `mesh_shapes` (gloo, on the CPU), on this rank's blocks of
+    the case's whole numpy arguments (`cut` under the cell's `in_specs`).
+    A case is a dict: "arch", "shape_name", "shape" (a `RecSysShape`),
+    "cfg" (the port's config), "kind" ("serve", "retrieval", "grad": the
+    loss and its gradients under the training rules, "step": the cell's
+    train step) and "args" (the cell's arguments, whole: params [,
+    opt_state], batch [, candidates]). Returns {mesh shape: per case this
+    rank's coordinate and its blocks of the outputs, in numpy}; for "serve"
+    and "retrieval" also "one_rank", the one-rank call (no rules) on the
+    whole params and this rank's blocks of the rest."""
+    from repro_torch.distributed.sharding import RECSYS_RULES, P, adapt_rules
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import axis_names, make_mesh
+    from repro_torch.models.recsys import api
+    from repro_torch.training.train_loop import value_and_grad
+
+    results = {}
+    for mesh_shape in mesh_shapes:
+        mesh = make_mesh(mesh_shape, axis_names(mesh_shape), "cpu")
+        coord = tuple(mesh.get_coordinate())
+        out = results[tuple(mesh_shape)] = []
+        for case in cases:
+            cfg = case["cfg"]
+            cell = build_cell(case["arch"], case["shape_name"], mesh, cfg=cfg,
+                              shape=case["shape"])
+            specs = (spec_tree(case["args"][0], cell.in_specs[0]),) + tuple(cell.in_specs[1:])
+            if case["kind"] == "grad":
+                specs = (specs[0], specs[2])
+            args = [cut(a, s, mesh, coord) for a, s in zip(case["args"], specs)]
+            if case["kind"] == "grad":
+                rules = adapt_rules(RECSYS_RULES, mesh)
+                loss, _, grads = value_and_grad(
+                    lambda p, b: api.loss(p, b, cfg, rules), args[0], args[1], rules)
+                result = (loss, grads)
+            else:
+                result = cell.fn(*args)
+            rec = {"coord": coord, "out": _numpy_tree(result)}
+            if case["kind"] in ("serve", "retrieval"):
+                whole = cut(case["args"][0], spec_tree(case["args"][0], P()), mesh, coord)
+                fn = api.serve if case["kind"] == "serve" else api.retrieval
+                rec["one_rank"] = to_numpy(fn(whole, *args[1:], cfg))
+            out.append(rec)
+    return results
+
+
+def refuse_cell_rank(rank, world, cases):
+    """Each (arch, shape, optimizer) cell built on the (1, 2) mesh of this
+    world's two ranks and its `fn` called on the cell's own "meta" args:
+    the message of each refusal, or None where the call went through."""
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+    out = []
+    for arch, shape, optimizer in cases:
+        cell = build_cell(arch, shape, mesh, optimizer=optimizer)
+        try:
+            cell.fn(*cell.args)
+            out.append(None)
+        except ValueError as e:
+            out.append(str(e))
+    return out
