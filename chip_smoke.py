@@ -201,6 +201,20 @@ rule).
    every forward block the one-rank call's bits on the whole tables and
    the rank's blocks of the rest, the step within phase 5's rule against
    the one-rank step's block.
+20. lm_ranks — the LM trunk across ranks, which launches none of the six
+   kernels: yi_6b and olmoe_1b_7b at full width cut to 2 layers, bf16,
+   weights from seed 20 (olmoe's capacity factor 4: no entry drops on any
+   mesh). The one-rank calls first, saved to the host: the cross
+   entropy's gradients and an AdamW step of 4 × 1,024 tokens, a prefill of
+   4 × 2,048, 8 decode steps of 4 rows from a 4,096-position prefill, and
+   4 batch-1 C2 decode steps from a 16,384-position prefill (olmoe's two
+   decodes also with its weights in f32). Then 2 and 4 processes sharing
+   the card over gloo (every exchange through host memory) as (1, 2),
+   (2, 2) and (1, 4) meshes run `launch/cells`' LM cells on their blocks
+   (the decode's cache split over "model", the long-context one over
+   ("data", "model")); each rank's ms, peak GB and largest difference from
+   the one-rank call's block, held at `LM_RANK_*_TOL` (an MoE arch's bf16
+   decode is recorded, its f32 decode held: see `LM_RANK_F32_TOL`).
 The kernels phase also runs `embedding_bag`'s row range (51,200 ids into
 one block of the item table split 2 and 4 ways).
 
@@ -246,7 +260,9 @@ from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.distributed import expert_parallel, grad_compression  # noqa: E402
-from repro_torch.distributed.sharding import LM_RULES, adapt_rules, block_slices  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    LM_RULES, P, adapt_rules, block_slices,
+)
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.models.gnn import nequip, sampler  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as eb_ops  # noqa: E402
@@ -2663,6 +2679,363 @@ def phase_recsys_cells() -> dict:
     return totals
 
 
+# phase 20: the LM trunk across ranks on one card: yi_6b and olmoe_1b_7b at
+# full width cut to 2 layers, bf16, weights from seed 20, over gloo ranks
+# sharing the card (every tensor on cuda:0, each exchange through host
+# memory), each rank's blocks against the one-rank call on the same card.
+# olmoe's capacity factor is raised so that no entry drops on any mesh:
+# its dispatch then routes each token alike on every mesh, and the
+# cross-entropy's gradients are the mesh's to compare (the aux loss is the
+# mean of each rank's own, as `repro`'s, and its gradient depends on the
+# mesh: the CPU tests hold it against `repro` on the same mesh)
+LM_RANK_ARCHS = ("yi_6b", "olmoe_1b_7b")
+LM_RANK_WORLDS = {2: ((1, 2),), 4: ((2, 2), (1, 4))}
+LM_RANK_LAYERS, LM_RANK_SEED, LM_RANK_CAPACITY = 2, 20, 4.0
+LM_RANK_TRAIN = (4, 1024)  # the AdamW step's batch x tokens
+LM_RANK_PREFILL = (4, 2048)
+LM_RANK_DECODE = (4, 4096, 8)  # batch, cache positions (a prefill's), steps
+LM_RANK_DECODE_POS = (100, 1500, 2047, 4000)  # each row's first position
+LM_RANK_LONG = (16384, 4, 9000)  # batch 1: cache positions, steps, first position
+# against the one-rank call, of the largest |value| of the one-rank output:
+# the bf16 tolerances the port holds against jitted `repro` (ROADMAP Queue
+# 3): logits and caches 3e-2, each gradient leaf 4e-2, the loss 1e-3. An
+# MoE arch's bf16 decode is recorded, not held: its router's bf16 logits
+# tie and near-tie, so the split path's other rounding of the attention
+# before it flips top-8 choices (olmoe's decode logits 0.44 apart at (1, 2)
+# on an H100, its prefill the one-rank bits); the same weights
+# in f32 (TF32 off) hold its decode at `LM_RANK_F32_TOL`
+LM_RANK_LOGITS_TOL, LM_RANK_GRAD_TOL, LM_RANK_LOSS_TOL = 3e-2, 4e-2, 1e-3
+LM_RANK_F32_TOL = 1e-4
+LM_RANK_TIMEOUT_S = 600
+
+
+def _lm_rank_cfg(arch: str):
+    cfg = dataclasses.replace(get_config(arch), n_layers=LM_RANK_LAYERS)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=LM_RANK_CAPACITY)
+    return cfg
+
+
+def _lm_rank_inputs(cfg) -> dict:
+    """Phase 20's token ids, numpy, the same in every process."""
+    rng = np.random.default_rng(LM_RANK_SEED)
+    (B, S), (Bp, Sp), (Bd, Td, nd), (Tl, nl, _) = (LM_RANK_TRAIN, LM_RANK_PREFILL,
+                                                   LM_RANK_DECODE, LM_RANK_LONG)
+    batch = next(synthetic.lm_token_batches(cfg.vocab_size, B, S, 1, seed=LM_RANK_SEED))
+    return {"batch": batch, "prefill": rng.integers(0, cfg.vocab_size, (Bp, Sp)).astype(np.int32),
+            "decode_fill": rng.integers(0, cfg.vocab_size, (Bd, Td)).astype(np.int32),
+            "decode": rng.integers(0, cfg.vocab_size, (nd, Bd)).astype(np.int32),
+            "long_fill": rng.integers(0, cfg.vocab_size, (1, Tl)).astype(np.int32),
+            "long": rng.integers(0, cfg.vocab_size, (nl, 1)).astype(np.int32)}
+
+
+def _lm_rank_params(cfg):
+    return init_params(transformer.param_defs(cfg),
+                       torch.Generator(device="cuda").manual_seed(LM_RANK_SEED), "cuda")
+
+
+def _ce_loss(cfg, rules=None):
+    """The cross entropy alone as a loss (`value_and_grad`'s form)."""
+    def fn(p, b):
+        _, metrics = transformer.loss(p, b, cfg, rules)
+        return metrics["ce"], metrics
+    return fn
+
+
+def _lm_decode_run(fn, params, cache, tokens, pos):
+    """`fn` stepped once a row of `tokens`, from `pos`: (the logits of each
+    step, the ms of each, the last cache)."""
+    logits, ms = [], []
+    for t in range(tokens.shape[0]):
+        (lg, cache), dt = _timed(lambda: fn(params, cache, tokens[t], pos + t))
+        logits.append(lg)
+        ms.append(dt)
+    return logits, ms, cache
+
+
+def _lm_rank_reference(arch: str, root: Path) -> dict:
+    """Phase 20's one-rank calls of `arch` on the card (no mesh), saved to
+    `root` on the host for the ranks: the cross entropy's gradients and
+    the AdamW step's metrics, the prefill's logits and caches, the decode
+    and long-context decode steps from prefilled caches."""
+    cfg = _lm_rank_cfg(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = _lm_rank_params(cfg)
+    ins = {k: (torch.from_numpy(v).cuda() if not isinstance(v, dict)
+               else {n: torch.from_numpy(x).cuda() for n, x in v.items()})
+           for k, v in _lm_rank_inputs(cfg).items()}
+    from repro_torch.training.optimizer import get_optimizer
+    from repro_torch.training.train_loop import value_and_grad
+
+    ref, ms = {}, {}
+    (ce, metrics, grads), ms["grad"] = _timed(lambda: value_and_grad(_ce_loss(cfg), params,
+                                                                      ins["batch"]))
+    ref["grads"] = _to_cpu(grads)
+    ref["grad_max"] = {"/".join(p): float(g.abs().max()) for p, g in tree_leaves(grads)}
+    del grads
+    opt = get_optimizer("adamw")
+    step = make_train_step(lambda p, b: transformer.loss(p, b, cfg), opt)
+    (_, _, m), ms["step"] = _timed(lambda: step(params, opt.init(params), ins["batch"]))
+    ref["metrics"] = {k: float(v) for k, v in m.items()}
+    del m
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        (logits, kv), ms["prefill"] = _timed(lambda: transformer.prefill(params, ins["prefill"],
+                                                                         cfg))
+        ref["prefill"] = _to_cpu((logits, kv))
+        del logits, kv
+        for kind, dtype in _lm_decode_kinds(cfg):
+            base = kind.split("_")[0]
+            c, p = _as_dtype(cfg, params, dtype)
+            if base == "long":
+                c = dataclasses.replace(c, sparse_attention=True)
+            if f"{base}_fill" not in ref:  # the caches: a prefill of the whole cache, bf16
+                _, fill = transformer.prefill(params, ins[f"{base}_fill"], cfg)
+                ref[f"{base}_fill"] = _to_cpu(fill)
+                del fill
+            fill = _fill_as(ref[f"{base}_fill"], dtype, "cuda")
+            first = LM_RANK_DECODE_POS if base == "decode" else (LM_RANK_LONG[2],)
+            pos = torch.tensor(first, dtype=torch.int64, device="cuda")
+            logits, t, cache = _lm_decode_run(
+                lambda pp, cc, tok, q: transformer.decode(pp, cc, tok, q, c), p, fill, ins[base],
+                pos)
+            ms[kind] = float(np.median(t[1:]))
+            ref[kind] = _to_cpu((torch.stack(logits), cache))
+            del fill, logits, cache, p
+            torch.cuda.empty_cache()
+    ref["ms"] = ms
+    ref["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.save(ref, root / f"{arch}.pt")
+    del params, ins
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_gb": ref["peak_gb"], "metrics": ref["metrics"]}
+
+
+def _lm_decode_kinds(cfg):
+    """Phase 20's decode runs: (name, dtype): bf16 always, f32 as well for
+    an MoE arch (see `LM_RANK_F32_TOL`)."""
+    kinds = [("decode", cfg.dtype), ("long", cfg.dtype)]
+    if cfg.n_experts:
+        kinds += [("decode_f32", "float32"), ("long_f32", "float32")]
+    return kinds
+
+
+def _fill_as(fill, dtype: str, device):
+    """A prefilled bf16 cache pair in `dtype` on `device` (the f32 runs
+    decode from the same cache, its values cast)."""
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    return tuple(x.to(device=device, dtype=dt) for x in fill)
+
+
+def _as_dtype(cfg, params, dtype: str):
+    """(cfg, params) in `dtype`: the same weights, cast."""
+    if dtype == cfg.dtype:
+        return cfg, params
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    return dataclasses.replace(cfg, dtype=dtype), tree_map(lambda t: t.to(dt), params)
+
+
+def _rel_block(got, ref_whole, spec, mesh, coord, scale=None) -> float:
+    """max |got - its block of ref_whole| over the largest |ref_whole|."""
+    blk = ref_whole[block_slices(ref_whole.shape, spec, mesh, coord)].to(got.device)
+    scale = float(ref_whole.abs().max()) if scale is None else scale
+    return float((got.float() - blk.float()).abs().max()) / max(scale, 1e-30)
+
+
+def _lm_rank_cases(arch: str, mesh, root: Path) -> list:
+    """On this rank of `mesh`: `arch`'s train, prefill, decode and
+    long-context decode cells (`launch/cells.build_cell`) on this rank's
+    blocks, each against the one-rank call's block (`_lm_rank_reference`)."""
+    from repro_torch.configs.shapes import LMShape
+    from repro_torch.training.optimizer import get_optimizer
+    from repro_torch.training.train_loop import value_and_grad
+
+    cfg = _lm_rank_cfg(arch)
+    ref = torch.load(root / f"{arch}.pt", mmap=True, weights_only=True)
+    coord = tuple(mesh.get_coordinate())
+    whole = _lm_rank_params(cfg)
+    ins = _lm_rank_inputs(cfg)
+    rules = adapt_rules(LM_RULES, mesh)
+    (B, S), (Bp, Sp), (Bd, Td, _), (Tl, _, long_pos) = (LM_RANK_TRAIN, LM_RANK_PREFILL,
+                                                        LM_RANK_DECODE, LM_RANK_LONG)
+    shapes = {"train": ("train_4k", LMShape("train_4k", S, B, "train")),
+              "prefill": ("prefill_32k", LMShape("prefill_32k", Sp, Bp, "prefill")),
+              "decode": ("decode_32k", LMShape("decode_32k", Td, Bd, "decode")),
+              "long": ("long_500k", LMShape("long_500k", Tl, 1, "decode"))}
+    built = {k: cells.build_cell(arch, n, mesh, cfg=cfg, shape=sh)
+             for k, (n, sh) in shapes.items() if k in ("train", "prefill")}
+    blocks = {k: _cut_block(whole, built[k].in_specs[0], mesh, coord) for k in ("train", "prefill")}
+    del whole
+    torch.cuda.empty_cache()
+    cut = lambda a, spec: _cut_block(torch.as_tensor(a).cuda(), spec, mesh, coord)  # noqa: E731
+    base = {"mesh": list(mesh.shape), "coord": coord, "arch": arch, "n_layers": cfg.n_layers,
+            "dtype": cfg.dtype}
+    out = []
+
+    # the train cell: the cross entropy's gradients, then the AdamW step
+    cell = built["train"]
+    params = blocks.pop("train")
+    batch = {k: cut(v, cell.in_specs[2][k]) for k, v in ins["batch"].items()}
+    torch.cuda.reset_peak_memory_stats()
+    (ce, _, grads), grad_ms = _timed(lambda: value_and_grad(_ce_loss(cfg, rules), params, batch))
+    errs = {"/".join(p): _rel_block(g, _leaf(ref["grads"], p), _leaf(cell.in_specs[0], p), mesh,
+                                    coord, ref["grad_max"]["/".join(p)])
+            for p, g in tree_leaves(grads)}
+    del grads
+    opt = get_optimizer("adamw")
+    (_, _, m), step_ms = _timed(lambda: cell.fn(params, opt.init(params), batch))
+    metrics = {k: float(v) for k, v in m.items()}
+    one = ref["metrics"]
+    rec = {**base, "kind": "train", "tokens": [B, S], "step_ms": step_ms, "grad_ms": grad_ms,
+           "one_rank_step_ms": ref["ms"]["step"], "one_rank_grad_ms": ref["ms"]["grad"],
+           "metrics": metrics, "one_rank_metrics": one,
+           "ce_rel_diff": abs(metrics["ce"] - one["ce"]) / abs(one["ce"]),
+           "grad_rel_diff_max": max(errs.values()), "grad_leaf_worst": max(errs, key=errs.get),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    rec["ok"] = rec["ce_rel_diff"] <= LM_RANK_LOSS_TOL and rec["grad_rel_diff_max"] <= \
+        LM_RANK_GRAD_TOL
+    if not cfg.n_experts:  # the loss is the cross entropy: the step's whole metrics
+        for k in ("loss", "grad_norm"):
+            rec[f"{k}_rel_diff"] = abs(metrics[k] - one[k]) / abs(one[k])
+            rec["ok"] = rec["ok"] and rec[f"{k}_rel_diff"] <= LM_RANK_LOSS_TOL
+    out.append(rec)
+    del params, batch, m
+    torch.cuda.empty_cache()
+
+    # prefill, then the decode cells from prefilled caches
+    params = blocks.pop("prefill")
+    with torch.no_grad():
+        cell = built["prefill"]
+        torch.cuda.reset_peak_memory_stats()
+        (logits, (k, v)), ms = _timed(lambda: cell.fn(params, cut(ins["prefill"],
+                                                                   cell.in_specs[1])))
+        lspec, (cspec, _) = cell.out_specs
+        diffs = {"logits": _rel_block(logits, ref["prefill"][0], lspec, mesh, coord),
+                 "k": _rel_block(k, ref["prefill"][1][0], cspec, mesh, coord),
+                 "v": _rel_block(v, ref["prefill"][1][1], cspec, mesh, coord)}
+        out.append({**base, "kind": "prefill", "tokens": [Bp, Sp], "ms": ms,
+                    "one_rank_ms": ref["ms"]["prefill"], "rel_diffs": diffs,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "ok": max(diffs.values()) <= LM_RANK_LOGITS_TOL})
+        del logits, k, v
+        for kind, dtype in _lm_decode_kinds(cfg):
+            base_kind = kind.split("_")[0]
+            c, p = _as_dtype(cfg, params, dtype)
+            cell = cells.build_cell(arch, shapes[base_kind][0], mesh, cfg=c,
+                                    shape=shapes[base_kind][1])
+            _, (cspec, _), tspec, pspec_ = cell.in_specs
+            fill = _fill_as([_cut_block(x, cspec, mesh, coord) for x in ref[f"{base_kind}_fill"]],
+                            dtype, "cuda")
+            first = (long_pos,) if base_kind == "long" else LM_RANK_DECODE_POS
+            pos = cut(np.array(first, np.int64), pspec_)
+            tokens = cut(ins[base_kind], P(None, *tspec))
+            torch.cuda.reset_peak_memory_stats()
+            logits, ms, cache = _lm_decode_run(cell.fn, p, fill, tokens, pos)
+            lspec = P(None, *cell.out_specs[0])
+            diffs = {"logits": _rel_block(torch.stack(logits), ref[kind][0], lspec, mesh, coord),
+                     "k": _rel_block(cache[0], ref[kind][1][0], cspec, mesh, coord),
+                     "v": _rel_block(cache[1], ref[kind][1][1], cspec, mesh, coord)}
+            held = dtype == "float32" or not cfg.n_experts
+            tol = LM_RANK_F32_TOL if dtype == "float32" else LM_RANK_LOGITS_TOL
+            out.append({**base, "kind": kind, "dtype": dtype,
+                        "batch": 1 if base_kind == "long" else Bd,
+                        "cache": Tl if base_kind == "long" else Td, "steps": len(ms),
+                        "first_pos": list(first), "ms": float(np.median(ms[1:])), "ms_each": ms,
+                        "one_rank_ms": ref["ms"][kind], "rel_diffs": diffs, "held": held,
+                        "tol": tol, "finite": bool(all(torch.isfinite(x).all() for x in logits)),
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+            out[-1]["ok"] = out[-1]["finite"] and (not held or max(diffs.values()) <= tol)
+            del fill, cache, logits, p
+    del params, blocks, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _lm_ranks_main(rank, world, init_file, meshes, root, out_dir) -> None:
+    """A process of phase 20's ranks: a gloo group of `world` on one card."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import axis_names, make_mesh
+
+    torch.cuda.set_device(0)
+    serve.disable_tf32()
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=LM_RANK_TIMEOUT_S))
+    try:
+        recs = [r for shape in meshes
+                for mesh in [make_mesh(shape, axis_names(shape), "cpu")]
+                for arch in LM_RANK_ARCHS for r in _lm_rank_cases(arch, mesh, Path(root))]
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(recs, Path(out_dir) / f"rank{rank}.pt")
+
+
+def phase_lm_ranks() -> dict:
+    """Phase 20: the LM trunk across ranks on the one card. The one-rank
+    calls first (`_lm_rank_reference`, saved to the host), then 2 and 4
+    spawned processes (gloo groups over a mesh of device type "cpu", every
+    tensor on cuda:0) as (1, 2), (2, 2) and (1, 4) meshes, each rank on its
+    blocks of `launch/cells`' LM cells (`_lm_rank_cases`). Each rank's
+    record: its ms, peak GB and largest difference from the one-rank call.
+    Returns the launches of the parent's calls (none: the LM reaches no
+    kernel)."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_ranks_"))
+    serve.reset_launch_counts()
+    try:
+        for arch in LM_RANK_ARCHS:
+            emit({"phase": "lm_ranks", "part": "one_rank", "arch": arch,
+                  **_lm_rank_reference(arch, root)})
+        launches = serve.launch_counts()
+        torch.cuda.empty_cache()
+        for world, meshes in LM_RANK_WORLDS.items():
+            t1 = time.perf_counter()
+            ctx = mp.start_processes(_lm_ranks_main,
+                                     args=(world, str(root / f"init{world}"), meshes, str(root),
+                                           str(root)), nprocs=world, join=False,
+                                     start_method="spawn")
+            try:
+                while not ctx.join(timeout=1.0):
+                    if time.perf_counter() - t1 > LM_RANK_TIMEOUT_S:
+                        raise TimeoutError(f"{world} ranks ran past {LM_RANK_TIMEOUT_S} s")
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                    p.join(5)
+            recs = [r for rank in range(world)
+                    for r in torch.load(root / f"rank{rank}.pt", weights_only=False)]
+            for r in recs:
+                emit({"phase": "lm_ranks", "world": world, **r})
+            emit({"phase": "lm_ranks", "world": world, "seconds": time.perf_counter() - t1})
+            bad = [(r["mesh"], r["coord"], r["arch"], r["kind"]) for r in recs if not r["ok"]]
+            if bad:
+                raise AssertionError(f"LM ranks on one card differ from one rank: {bad}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "lm_ranks", "part": "done", "launches": launches,
+          "cuts": {"n_layers": LM_RANK_LAYERS, "train_tokens": list(LM_RANK_TRAIN),
+                   "prefill_tokens": list(LM_RANK_PREFILL), "decode": list(LM_RANK_DECODE),
+                   "long": list(LM_RANK_LONG), "olmoe_capacity_factor": LM_RANK_CAPACITY},
+          "seconds": time.perf_counter() - t0})
+    if any(launches.values()):
+        raise AssertionError(f"the LM path launched kernels: {launches}")
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_device()
@@ -2692,6 +3065,7 @@ def main() -> None:
     emit({"phase": "gnn_full_size", **_ogb_products_reckoning(get_config("nequip"))})
     by_path["distributed"] = phase_distributed()
     by_path["recsys_cells"] = phase_recsys_cells()
+    by_path["lm_ranks"] = phase_lm_ranks()
     for path in ("train_launcher_fm", "train_launcher_dien"):
         if not (by_path[path]["fm_interaction"] or by_path[path]["augru"]):
             raise AssertionError(f"{path} launched neither fm_interaction nor augru")

@@ -11,6 +11,11 @@ each is an autograd Function with the backward that its layout asks for:
                               transpose, a reduce-scatter, backward
   reduce_scatter(t, dim, group)  the reduce-scatter along `dim`; its
                               transpose, the all-gather, backward
+  gather_spec(t, spec, mesh)  a block laid out by a PartitionSpec made
+                              whole: `gather` along each dim it splits
+  psum(t, groups)             `sum_forward` summed in f32, back in t's dtype
+  scale_grad(t, s)            identity forward, the gradient times s backward
+  tp_matmul(x, w, spec, mesh) x @ w on a row- or column-parallel block of w
 
 `sum_forward` and `sum_grad` are a conjugate pair. `sum_forward` turns
 partial sums that every rank of a group holds into the whole, replicated
@@ -22,7 +27,10 @@ summed. (`all_reduce` is shard_map's convention instead: every rank's
 output is counted once in the loss, so the gradient is summed too.)
 
 gloo's collectives take CPU tensors and, for the all-gather and
-reduce-scatter, a flat [n·d0, ...] buffer ([n, d0, ...] fails). Where a
+reduce-scatter, a flat [n·d0, ...] buffer ([n, d0, ...] fails). They take
+bfloat16 as they are (torch 2.13's gloo gathers, reduce-scatters and sums
+it, checked on two CPU ranks): a gather moves the bits, and `psum` sums a
+bf16 partial product in f32. Where a
 group runs gloo and the tensor lies on a card (several processes sharing
 one card, which NCCL does not take), the exchange goes through host memory:
 a copy to the CPU, the collective, a copy back. Every computation stays
@@ -34,6 +42,8 @@ from typing import Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.distributed.sharding import axes_index, entry_axes, mesh_groups
 
 
 def through_host(t: torch.Tensor, group) -> bool:
@@ -49,6 +59,17 @@ def sum_in_place(t: torch.Tensor, group) -> torch.Tensor:
         dist.all_reduce(h, group=group)
         return t.copy_(h)
     dist.all_reduce(t, group=group)
+    return t
+
+
+def max_in_place(t: torch.Tensor, group) -> torch.Tensor:
+    """`t`'s elementwise max over `group` in place (t contiguous), outside
+    autograd."""
+    if through_host(t, group):
+        h = t.cpu()
+        dist.all_reduce(h, op=dist.ReduceOp.MAX, group=group)
+        return t.copy_(h)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t
 
 
@@ -151,6 +172,17 @@ class _SumForward(torch.autograd.Function):
         return grad, None
 
 
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, s):
+        ctx.s = s
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.s, None
+
+
 class _GatherDim(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, dim, group):
@@ -208,3 +240,50 @@ def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     `dim` (1/n of it, in group-rank order); backward, the tiled all-gather
     of the gradient."""
     return _ReduceScatterDim.apply(t, dim, group)
+
+
+def gather_spec(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole tensor of which `t` is this rank's block under `spec` (a
+    PartitionSpec) on `mesh`: each dim gathered over the mesh dims its
+    entry names, the minor one first, so that the major one ends outermost
+    (`sharding.block_slices`' numbering). Each step is a `gather`, so the
+    backward reduce-scatters: the sum of every rank's gradient, this rank's
+    block of it. Mesh dims of one rank are skipped."""
+    for d, entry in enumerate(spec):
+        for g in reversed(mesh_groups(mesh, entry_axes(entry))):
+            t = gather(t, d, g)
+    return t
+
+
+def psum(t: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """`sum_forward` of partial products: summed in f32 and cast back, so
+    that a bf16 partial sum rounds once, as the whole product does."""
+    if not groups:
+        return t
+    return sum_forward(t.float(), groups).to(t.dtype)
+
+
+def scale_grad(t: torch.Tensor, s: float) -> torch.Tensor:
+    """`t` itself; backward, the gradient times `s`. An output of
+    `all_reduce` that each of n ranks counts in its own copy of a
+    replicated loss takes s = 1/n: `all_reduce`'s backward sums the n
+    copies' gradients, and the loss counts the output once."""
+    return _ScaleGrad.apply(t, s) if s != 1 else t
+
+
+def tp_matmul(x: torch.Tensor, w: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """x @ w, w [N_in, N_out] this rank's block under `spec` on `mesh`
+    (Megatron's tensor parallelism). Where `spec` splits w's rows
+    (row-parallel), x is taken at the same block of its last dim, unless it
+    holds just that block already (a column-parallel product's output),
+    and the partial products are summed over those mesh dims (`psum`);
+    where it splits the columns (column-parallel), the result is this
+    rank's block of them."""
+    rows = entry_axes(spec[0]) if len(spec) else ()
+    if not rows:
+        return torch.matmul(x, w)
+    index, _ = axes_index(mesh, rows)
+    n = w.shape[0]
+    if x.shape[-1] != n:
+        x = x[..., index * n:(index + 1) * n]
+    return psum(torch.matmul(x, w), mesh_groups(mesh, rows))

@@ -47,13 +47,13 @@ import math
 from typing import Dict, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import LM_RULES, P, adapt_rules, mesh_axis_names
+from repro_torch.distributed.sharding import (
+    LM_RULES, P, adapt_rules, axes_index, entry_axes, mesh_axis_names, mesh_groups)
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.moe import expert_ffn, route, scatter_rows
+from repro_torch.models.moe import combine, expert_ffn, route, scatter_rows
 
 _SHARED = ("shared_gate", "shared_up", "shared_down")
 
@@ -98,21 +98,20 @@ def ep_specs(rules, has_shared: bool) -> Tuple[P, Dict[str, P]]:
 
 
 class _Exchange:
-    """The collectives of one call: over the "model" group (`ep`), the dp
-    groups (major to minor) and any mesh dim by name, or none at all
-    without a mesh."""
+    """The collectives of one call: over the "model" group (`ep`) and any
+    mesh dim by name, the weights' gathers by their specs (`ep_specs`' or
+    `w_specs`), or none at all without a mesh."""
 
-    def __init__(self, mesh, rules):
+    def __init__(self, mesh, rules, w_specs=None):
         self.mesh = mesh
         if mesh is None:
-            self.n_groups, self.names, self.dp, self.dp_axes = 1, (), (), ()
+            self.n_groups, self.names = 1, ()
             return
         self.names = mesh_axis_names(mesh)
         self.groups = {a: mesh.get_group(a) for a in self.names}
         self.ep = self.groups[rules["experts"]]
         self.n_groups = mesh.size(self.names.index(rules["experts"]))
-        self.dp_axes = _dp_axes(rules)
-        self.dp = tuple(self.groups[a] for a in self.dp_axes)
+        self.w_specs = w_specs if w_specs is not None else ep_specs(rules, True)[1]
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """Chunk i of dim 0 to group rank i; the chunks received stacked in
@@ -121,17 +120,29 @@ class _Exchange:
             return t
         return collectives.all_to_all(t, self.ep)
 
-    def gather_dp(self, w: torch.Tensor, dim: int) -> torch.Tensor:
-        """`lax.all_gather(w, dp_axes, axis=dim, tiled=True)`: the minor
-        axis first, so that the major one ends outermost. Over a dp group
-        of one rank the gather is `w` itself, as it costs nothing in
-        `repro`: no second copy of the layer's weights."""
+    def gather_dp(self, w: torch.Tensor, dim: int, name: str) -> torch.Tensor:
+        """`lax.all_gather(w, dp_axes, axis=dim, tiled=True)`, over the
+        mesh dims that leaf `name`'s spec names at `dim` (the dp axes
+        under `ep_specs`): the minor axis first, so that the major one ends
+        outermost. Over a group of one rank the gather is `w` itself, as it
+        costs nothing in `repro`: no second copy of the layer's weights."""
         if self.mesh is None:
             return w
-        for g in reversed(self.dp):
-            if dist.get_world_size(g) > 1:
-                w = collectives.gather(w, dim, g)
+        spec = self.w_specs[name]
+        axes = entry_axes(spec[dim]) if dim < len(spec) else ()
+        for g in reversed(mesh_groups(self.mesh, axes)):
+            w = collectives.gather(w, dim, g)
         return w
+
+    def whole(self, w: torch.Tensor, name: str) -> torch.Tensor:
+        """A shared expert's weight made whole from its block under its
+        spec; its gradient summed over the mesh dims the spec leaves out,
+        as shard_map's transpose sums it (`replicated`)."""
+        if self.mesh is None:
+            return w
+        spec = self.w_specs[name]
+        w = self.replicated(w, tuple(a for e in spec for a in entry_axes(e)))
+        return collectives.gather_spec(w, spec, self.mesh)
 
     def pmean(self, t: torch.Tensor) -> torch.Tensor:
         """`lax.pmean` over the dp axes and the expert axis: every rank of
@@ -152,8 +163,8 @@ class _Exchange:
         return collectives.sum_grad(t, rest)
 
 
-def moe_ffn_ep(x, layer_params, cfg, stats=None, *,
-               mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn_ep(x, layer_params, cfg, stats=None, *, mesh=None,
+               w_specs=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE FFN. x: [B, S, D], this rank's block of the
     global x under `ep_specs`; `layer_params` this rank's blocks of the
     layer's weights. Returns (this rank's block of out, aux).
@@ -165,11 +176,18 @@ def moe_ffn_ep(x, layer_params, cfg, stats=None, *,
     stage, under "dropped_pair" (its send buffers' C_pair) and
     "dropped_expert" (its experts' C_e, of the entries it received)
     (tensors, read by the caller when it likes): a record, which changes
-    no output."""
+    no output.
+
+    `w_specs` (a dict of PartitionSpecs by leaf name) gives the layout the
+    weights arrive in where it is not `ep_specs`' (the serving layout of
+    `param_pspecs(..., serve=True)`, sliced to one layer): each expert
+    weight is gathered along dim 1 over the mesh dims its spec names there
+    (never along the expert dim), a shared expert's weights whole over
+    theirs; the numbers are those of `ep_specs`' layout."""
     rules = adapt_rules(LM_RULES, mesh) if mesh is not None else {}
     if mesh is not None and rules["experts"] is None:
         return moe_lib.moe_ffn(x, layer_params, cfg, stats)
-    ex = _Exchange(mesh, rules)
+    ex = _Exchange(mesh, rules, w_specs)
     n_groups = ex.n_groups
     E, K, cf = cfg.n_experts, cfg.top_k, cfg.capacity_factor
     if E % n_groups:
@@ -211,7 +229,7 @@ def moe_ffn_ep(x, layer_params, cfg, stats=None, *,
     buf = scatter_rows(E_loc * C_e, slot2, recv_x).reshape(E_loc, C_e, D)
 
     # ---- expert FFN; weights FSDP-gathered over the dp axes ----
-    w_gate, w_up, w_down = (ex.gather_dp(layer_params[k], 1)
+    w_gate, w_up, w_down = (ex.gather_dp(layer_params[k], 1, k)
                             for k in ("w_gate", "w_up", "w_down"))
     out_buf = expert_ffn(buf, w_gate, w_up, w_down).reshape(E_loc * C_e, D)
 
@@ -226,9 +244,71 @@ def moe_ffn_ep(x, layer_params, cfg, stats=None, *,
 
     if "shared_gate" in layer_params:
         # shared weights FSDP-sharded on dim 0 over the dp axes
-        sg, su, sd = (ex.gather_dp(ex.replicated(layer_params[k], ex.dp_axes), 0)
-                      for k in _SHARED)
+        sg, su, sd = (ex.whole(layer_params[k], k) for k in _SHARED)
         hg = F.silu(torch.matmul(xt, sg).float()).to(x.dtype)
         out = out + torch.matmul(hg * torch.matmul(xt, su), sd)
 
     return out.reshape(B, S, D), aux
+
+
+def moe_ffn_tp(x, layer_params, cfg, stats=None, *, mesh, rules,
+               w_specs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`models.moe.moe_ffn` (decode's dispatcher) across the ranks of `mesh`
+    on the serving layout, whole expert stacks never gathered. x: [B, S,
+    D], this rank's block of the batch under `rules["batch"]`, the same on
+    the ranks of every other mesh dim; `layer_params` this rank's blocks
+    under `w_specs` (one layer's slice of `param_pspecs(..., serve=True)`:
+    the experts over "model", w_gate's and w_up's D and w_down's F over
+    "data", a shared expert column- then row-parallel over "model").
+
+    The tokens are gathered over the batch's mesh dims, so that routing,
+    capacity and drops are `moe_ffn`'s on the whole batch, computed alike
+    on every rank. Each rank runs its own experts' queues: gate and up
+    products over its block of D, summed over the dims that split D (each
+    rank then holds the whole [E_loc, C, F] hidden), the down product over
+    its block of F, a partial sum. The combine's partial outputs are summed
+    over the dims that split the experts and F, a shared expert's over its
+    own; this rank keeps its block of the batch. Returns (out block, aux);
+    aux is the whole batch's, as `moe_ffn`'s. No gradient is formed here:
+    decode has none."""
+    B, S, D = x.shape
+    batch_groups = mesh_groups(mesh, entry_axes(rules.get("batch")))
+    for g in reversed(batch_groups):
+        x = collectives.gather(x, 0, g)
+    xt = x.reshape(-1, D)
+    buffer, entry_slot, gate, aux = moe_lib.dispatch(xt, layer_params["router"], cfg, stats)
+
+    E = cfg.n_experts
+    spec_in, spec_out = w_specs["w_gate"], w_specs["w_down"]
+    e_axes = entry_axes(spec_in[0])
+    e_idx, e_ways = axes_index(mesh, e_axes)
+    E_loc = E // e_ways
+    buf = buffer[e_idx * E_loc:(e_idx + 1) * E_loc]  # [E_loc, C, D]
+    d_axes = entry_axes(spec_in[1]) if len(spec_in) > 1 else ()
+    d_idx, d_ways = axes_index(mesh, d_axes)
+    Db = D // d_ways
+    buf = buf[..., d_idx * Db:(d_idx + 1) * Db]
+    d_groups = mesh_groups(mesh, d_axes)
+    g = collectives.psum(torch.einsum("ecd,edf->ecf", buf, layer_params["w_gate"]), d_groups)
+    u = collectives.psum(torch.einsum("ecd,edf->ecf", buf, layer_params["w_up"]), d_groups)
+    h = F.silu(g.float()).to(buf.dtype) * u  # [E_loc, C, F]
+    f_axes = entry_axes(spec_out[1]) if len(spec_out) > 1 else ()
+    f_idx, f_ways = axes_index(mesh, f_axes)
+    Fb = h.shape[-1] // f_ways
+    part = torch.einsum("ecf,efd->ecd", h[..., f_idx * Fb:(f_idx + 1) * Fb],
+                        layer_params["w_down"])  # [E_loc, C, D], a partial sum over F
+    out_buf = part.new_zeros((E,) + tuple(part.shape[1:]))
+    out_buf[e_idx * E_loc:(e_idx + 1) * E_loc] = part
+    out = combine(out_buf.reshape(-1, D), entry_slot, gate)
+    out = collectives.psum(out, mesh_groups(mesh, e_axes + f_axes))
+
+    if "shared_gate" in layer_params:
+        hs = F.silu(collectives.tp_matmul(xt, layer_params["shared_gate"], w_specs["shared_gate"],
+                                          mesh).float()).to(xt.dtype)
+        hs = hs * collectives.tp_matmul(xt, layer_params["shared_up"], w_specs["shared_up"], mesh)
+        out = out + collectives.tp_matmul(hs, layer_params["shared_down"],
+                                          w_specs["shared_down"], mesh)
+
+    b_idx, _ = axes_index(mesh, entry_axes(rules.get("batch")))
+    out = out.reshape(-1, S, D)[b_idx * B:(b_idx + 1) * B]
+    return out, aux

@@ -138,6 +138,19 @@ def mesh_groups(mesh, axes) -> Tuple:
     return tuple(mesh.get_group(a) for a in axes if mesh.size(names.index(a)) > 1)
 
 
+def axes_index(mesh, axes) -> Tuple[int, int]:
+    """(this rank's block index, the number of blocks) along the mesh dims
+    `axes` of a `DeviceMesh`, major to minor, as `block_slices` numbers the
+    blocks of a dim that a spec entry of those dims splits."""
+    names = mesh_axis_names(mesh)
+    at = dict(zip(names, mesh.get_coordinate()))
+    index, ways = 0, 1
+    for a in axes:
+        n = mesh.size(names.index(a))
+        index, ways = index * n + at[a], ways * n
+    return index, ways
+
+
 def rule_groups(rules, name: str) -> Tuple:
     """`mesh_groups` of the mesh dims that rule `name` lays a tensor out
     over: the groups a reduction over that logical axis sums across. ()

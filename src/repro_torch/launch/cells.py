@@ -12,8 +12,16 @@ Nothing is compiled and no flops are counted here.
 blocks of the outputs under `out_specs`, as `repro`'s `jit` with
 `in_shardings` / `out_shardings` computes them. A recsys cell's `fn` runs
 across the ranks of a `DeviceMesh` (the row-split lookup, the global-batch
-loss, the train step's sums). An LM or GNN cell's `fn` runs on a mesh of
-one rank and refuses more: their forwards are not split across ranks yet.
+loss, the train step's sums), and so does an LM cell's (the transformer
+split by `rules`: FSDP weights and context-parallel attention in the
+train step and prefill, tensor parallelism and split-K attention in
+decode; `models/transformer`'s docstring), except under
+`train_layout="tp"` or `int8_serve`, which refuse more than one rank. A
+GNN cell's `fn` runs on a mesh of one rank and refuses more: its forward
+is not split across ranks yet. The long-context decode layout (batch 1,
+the cache split over "long_kv_seq") is the long_500k shape's, or any
+decode of 100,000 positions or more, as in `repro`; a `shape=` named
+"long_500k" takes it at any size.
 
 Beyond `repro`'s `build_cell`: `cfg=` takes a config in place of
 `get_config(arch, **overrides)` (a reduced one, or one with the C2
@@ -31,7 +39,6 @@ import torch
 from repro_torch.configs.base import ARCH_NAMES, GNNConfig, LMConfig, RecSysConfig, get_config
 from repro_torch.configs.shapes import FAMILY_SHAPES, GNNShape, LMShape, RecSysShape
 from repro_torch.distributed.sharding import FAMILY_RULES, P, adapt_rules, mesh_axis_names, pspec
-from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ParamDef, abstract_params, is_def, param_pspecs
 from repro_torch.models.gnn import nequip
@@ -55,16 +62,11 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def _device_mesh(mesh):
-    """`mesh` where it is a `DeviceMesh` (one with ranks), else None."""
-    return None if isinstance(mesh, AbstractMesh) else mesh
-
-
 def _one_rank(mesh, what: str) -> None:
     """Refuse a mesh of more than one rank for a forward not split yet."""
     if mesh.size() > 1:
         raise ValueError(f"{what} runs on a mesh of one rank; this one has {mesh.size()}: "
-                         "only the recommender's forwards are split across ranks yet")
+                         "the GNN's forward is not split across ranks yet")
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +110,6 @@ def _lm_cell(cfg: LMConfig, shape: LMShape, mesh, rules, optimizer: str,
              accum: int = 1) -> Cell:
     B, S = shape.global_batch, shape.seq_len
     defs = tf.param_defs(cfg)
-    dmesh = _device_mesh(mesh)
 
     if shape.kind == "train":
         params = abstract_params(defs)
@@ -125,11 +126,8 @@ def _lm_cell(cfg: LMConfig, shape: LMShape, mesh, rules, optimizer: str,
         batch = {"tokens": _meta((B, S), torch.int32), "labels": _meta((B, S), torch.int32)}
         b_specs = {k: pspec(("batch", "seq"), rules) for k in batch}
 
-        def loss_fn(p, b):
-            _one_rank(mesh, f"{cfg.name}'s loss")
-            return tf.loss(p, b, cfg, mesh=dmesh)
-
-        step = make_train_step(loss_fn, opt, grad_accum=accum)
+        step = make_train_step(lambda p, b: tf.loss(p, b, cfg, rules), opt, grad_accum=accum,
+                               rules=rules, param_specs=p_specs, whole_grads=True)
         metric_specs = {"ce": P(), "aux": P(), "grad_norm": P(), "loss": P()}
         return Cell(
             name=f"{cfg.name}:{shape.name}",
@@ -151,13 +149,9 @@ def _lm_cell(cfg: LMConfig, shape: LMShape, mesh, rules, optimizer: str,
         t_spec = pspec(("batch", "seq"), rules)
         cache_spec = pspec(tf.cache_axes(cfg, long_context=False), rules)
 
-        def prefill(p, t):
-            _one_rank(mesh, f"{cfg.name}'s prefill")
-            return tf.prefill(p, t, cfg, mesh=dmesh)
-
         return Cell(
             name=f"{cfg.name}:{shape.name}",
-            fn=prefill,
+            fn=lambda p, t: tf.prefill(p, t, cfg, rules=rules),
             args=(params, tokens),
             in_specs=(p_specs, t_spec),
             out_specs=(pspec(("batch", None), rules), (cache_spec, cache_spec)),
@@ -165,7 +159,7 @@ def _lm_cell(cfg: LMConfig, shape: LMShape, mesh, rules, optimizer: str,
         )
 
     assert shape.kind == "decode"
-    long_ctx = S >= 100_000
+    long_ctx = S >= 100_000 or shape.name == "long_500k"
     if long_ctx:
         # batch=1: batch axes cannot shard; all parallelism goes to the
         # KV sequence (split-K decode over (data, model)).
@@ -175,13 +169,9 @@ def _lm_cell(cfg: LMConfig, shape: LMShape, mesh, rules, optimizer: str,
     cache = (_meta(cshape, dt), _meta(cshape, dt))
     c_spec = pspec(tf.cache_axes(cfg, long_context=long_ctx), rules)
 
-    def decode(p, c, t, q):
-        _one_rank(mesh, f"{cfg.name}'s decode")
-        return tf.decode(p, c, t, q, cfg)
-
     return Cell(
         name=f"{cfg.name}:{shape.name}",
-        fn=decode,
+        fn=lambda p, c, t, q: tf.decode(p, c, t, q, cfg, rules=rules),
         args=(params, cache, _meta((B,), torch.int32), _meta((B,), torch.int32)),
         in_specs=(p_specs, (c_spec, c_spec), pspec(("batch",), rules), pspec(("batch",), rules)),
         out_specs=(pspec(("batch", None), rules), (c_spec, c_spec)),

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives
+
 _NEG = -1e30  # `repro`'s mask value
 
 
@@ -190,6 +192,28 @@ def _rows(cache, idx):
     return cache[torch.arange(cache.shape[0], device=cache.device)[:, None], idx]
 
 
+def _sparse_keys(pos, T: int, window: int, n_global: int, device):
+    """The C2 pattern's keys of each decode query: (positions [B, W+Gb],
+    the trailing window's then the strided global samples', and which of
+    them count: at or before pos, and a global sample not inside the
+    window, whose keys the window holds already)."""
+    B = pos.shape[0]
+    # ---- trailing window from pos-window+1, clamped into the cache as
+    # `jax.lax.dynamic_slice_in_dim` clamps its start ----
+    start = torch.clamp(pos - window + 1, 0, T - window)  # [B]
+    win_pos = start[:, None] + torch.arange(window, device=device)[None]  # [B,window]
+    # ---- strided global samples over [0, pos]: n_global evenly spaced ----
+    frac = jnp_linspace(1.0, n_global, device)
+    gpos = torch.floor(frac[None] * torch.clamp(pos[:, None], min=1).float()).to(torch.int64)
+    sel_pos = torch.cat([win_pos, gpos], dim=1)  # [B,W+Gb]
+    valid = sel_pos <= pos[:, None]
+    # avoid double-counting: global positions inside the window are masked
+    in_window = sel_pos >= start[:, None]
+    dup = torch.cat([torch.zeros((B, window), dtype=torch.bool, device=device),
+                     in_window[:, window:]], dim=1)
+    return sel_pos, valid & ~dup
+
+
 def sparse_decode_attention(q, k_cache, v_cache, pos, *, window: int, n_global: int):
     """The paper's C2 hybrid sparse attention at decode time: full attention
     over the trailing `window` positions + `n_global` strided global samples
@@ -197,37 +221,55 @@ def sparse_decode_attention(q, k_cache, v_cache, pos, *, window: int, n_global: 
 
     q: [B,1,K,G,hd]; caches: [B,T,K,hd]; pos: [B].
     """
-    B, _, Kh, G, hd = q.shape
+    hd = q.shape[-1]
     T = k_cache.shape[1]
-    window = min(window, T)
-    n_global = min(n_global, T)
     scale = _scalar(hd**-0.5, q.dtype)
-
-    # ---- trailing window from pos-window+1, clamped into the cache as
-    # `jax.lax.dynamic_slice_in_dim` clamps its start ----
-    start = torch.clamp(pos - window + 1, 0, T - window)  # [B]
-    win_pos = start[:, None] + torch.arange(window, device=q.device)[None]  # [B,window]
-    k_win, v_win = _rows(k_cache, win_pos), _rows(v_cache, win_pos)
-
-    # ---- strided global samples over [0, pos]: n_global evenly spaced ----
-    frac = jnp_linspace(1.0, n_global, q.device)
-    gpos = torch.floor(frac[None] * torch.clamp(pos[:, None], min=1).float()).to(torch.int64)
-    k_glb, v_glb = _rows(k_cache, gpos), _rows(v_cache, gpos)  # [B,n_global,K,hd]
-
-    k_sp = torch.cat([k_win, k_glb], dim=1)  # [B,W+Gb,K,hd]
-    v_sp = torch.cat([v_win, v_glb], dim=1)
-    sel_pos = torch.cat([win_pos, gpos], dim=1)  # [B,W+Gb]
+    sel_pos, keep = _sparse_keys(pos, T, min(window, T), min(n_global, T), q.device)
+    k_sp, v_sp = _rows(k_cache, sel_pos), _rows(v_cache, sel_pos)  # [B,W+Gb,K,hd]
 
     scores = torch.einsum("bkgd,btkd->bkgt", q[:, 0] * scale, k_sp).float()
-    valid = sel_pos <= pos[:, None]
-    # avoid double-counting: global positions inside the window are masked
-    in_window = sel_pos >= start[:, None]
-    dup = torch.cat([torch.zeros((B, window), dtype=torch.bool, device=q.device),
-                     in_window[:, window:]], dim=1)
-    scores = torch.where((valid & ~dup)[:, None, None], scores, _NEG)
+    scores = torch.where(keep[:, None, None], scores, _NEG)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", probs.to(v_sp.dtype), v_sp)
     return out[:, None]
+
+
+def split_decode_attention(q, k_cache, v_cache, pos, *, t0: int, T: int, groups,
+                           sparse: bool = False, window: int = 0, n_global: int = 0):
+    """`decode_attention` (or, `sparse`, `sparse_decode_attention`) over a
+    cache whose sequence is split across the ranks of `groups` (split-K
+    flash-decode). k_cache, v_cache [B,T_loc,K,hd] hold this rank's keys,
+    at global positions [t0, t0 + T_loc) of the cache's T; every key is
+    masked by its global position. Each rank forms over its keys the max m,
+    the sum l of exp(s - m) and the unnormalised output o (f32); the ranks
+    combine them: the max of m, then l and o rescaled by exp(m - max) and
+    summed. A rank without a key that counts has m = -inf, l = 0, o = 0
+    and weighs 0 (no NaN). q: [B,1,K,G,hd]; pos: [B]. Returns
+    [B,1,K,G,hd] in q's dtype, the same on every rank of `groups`."""
+    hd = q.shape[-1]
+    T_loc = k_cache.shape[1]
+    scale = _scalar(hd**-0.5, q.dtype)
+    if sparse:
+        sel_pos, keep = _sparse_keys(pos, T, min(window, T), min(n_global, T), q.device)
+        local = sel_pos - t0
+        keep = keep & (local >= 0) & (local < T_loc)
+        at = torch.clamp(local, 0, T_loc - 1)
+        k_cache, v_cache = _rows(k_cache, at), _rows(v_cache, at)
+    else:
+        keep = (t0 + torch.arange(T_loc, device=q.device))[None] <= pos[:, None]  # [B,T_loc]
+    s = torch.einsum("bkgd,btkd->bkgt", q[:, 0] * scale, k_cache).float()
+    s = torch.where(keep[:, None, None], s, -torch.inf)
+    m = torch.amax(s, dim=-1)  # [B,K,G]
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    l = torch.sum(p, dim=-1)  # noqa: E741
+    o = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
+    m_all = m.clone()
+    for g in groups:
+        collectives.max_in_place(m_all, g)
+    w = torch.where(torch.isfinite(m), torch.exp(m - m_all), 0.0)
+    l = collectives.sum_forward(l * w, groups)  # noqa: E741
+    o = collectives.sum_forward(o * w[..., None], groups)
+    return (o / l[..., None]).to(q.dtype)[:, None]
 
 
 # ---------------------------------------------------------------------------

@@ -85,6 +85,50 @@ def expert_ffn(buf, w_gate, w_up, w_down):
     return torch.einsum("ecf,efd->ecd", h, w_down)
 
 
+def dispatch(xt, router, cfg, stats=None):
+    """`moe_ffn`'s routing and sort-based dispatch of tokens xt [T, D]:
+    (buffer [E, C, D] of each expert's queue, entry_slot [T*K] each (token,
+    k) entry's row of the flattened buffer or -1 where it was dropped,
+    gate [T, K], aux). `stats` as `moe_ffn`'s."""
+    T, D = xt.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = capacity(T, E, K, cfg.capacity_factor)
+    gate, expert_idx, aux = route(xt, router, E, K)
+
+    # ---- sort-based dispatch with static capacity ----
+    flat_e = expert_idx.reshape(-1)  # [T*K] token-major
+    order = torch.argsort(flat_e, stable=True)  # XLA's sort is stable for equal keys
+    sorted_e = flat_e[order]
+    first_of_e = torch.searchsorted(sorted_e, sorted_e, right=False)
+    pos_in_e = torch.arange(T * K, device=xt.device) - first_of_e  # rank within expert queue
+    kept = pos_in_e < C
+    buf_slot = torch.where(kept, sorted_e * C + pos_in_e, E * C)  # E*C = drop bin
+    sorted_tok = order // K
+    if stats is not None:
+        stats.setdefault("dropped", []).append(torch.sum(~kept))
+        chosen = torch.zeros(E, dtype=torch.bool, device=xt.device).index_fill_(0, flat_e, True)
+        stats.setdefault("experts", []).append(torch.sum(chosen))
+
+    buffer = scatter_rows(E * C, buf_slot, xt[sorted_tok]).reshape(E, C, D)
+    entry_slot = torch.empty_like(buf_slot)
+    entry_slot[order] = torch.where(kept, buf_slot, -1)
+    return buffer, entry_slot, gate, aux
+
+
+def combine(out_buf, entry_slot, gate):
+    """Each (token, k) entry reads back its row of out_buf [E*C, D] (zeros
+    where it was dropped), weighted by its gate [T, K] and summed over k:
+    [T, D]."""
+    T, K = gate.shape
+    entry_out = torch.where(
+        (entry_slot >= 0)[:, None],
+        out_buf[torch.clamp(entry_slot, min=0)],
+        torch.zeros((), dtype=out_buf.dtype, device=out_buf.device),
+    )  # [T*K, D]
+    weighted = entry_out.reshape(T, K, -1) * gate[..., None].to(out_buf.dtype)
+    return torch.sum(weighted, dim=1)
+
+
 def moe_ffn(x, layer_params, cfg, stats=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> ([B, S, D], aux_loss scalar).
 
@@ -95,43 +139,13 @@ def moe_ffn(x, layer_params, cfg, stats=None) -> Tuple[torch.Tensor, torch.Tenso
     changes no output.
     """
     B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.top_k
-    T = B * S
-    C = capacity(T, E, K, cfg.capacity_factor)
-
-    xt = x.reshape(T, D)
-    gate, expert_idx, aux = route(xt, layer_params["router"], E, K)
-
-    # ---- sort-based dispatch with static capacity ----
-    flat_e = expert_idx.reshape(-1)  # [T*K] token-major
-    order = torch.argsort(flat_e, stable=True)  # XLA's sort is stable for equal keys
-    sorted_e = flat_e[order]
-    first_of_e = torch.searchsorted(sorted_e, sorted_e, right=False)
-    pos_in_e = torch.arange(T * K, device=x.device) - first_of_e  # rank within expert queue
-    kept = pos_in_e < C
-    buf_slot = torch.where(kept, sorted_e * C + pos_in_e, E * C)  # E*C = drop bin
-    sorted_tok = order // K
-    if stats is not None:
-        stats.setdefault("dropped", []).append(torch.sum(~kept))
-        chosen = torch.zeros(E, dtype=torch.bool, device=x.device).index_fill_(0, flat_e, True)
-        stats.setdefault("experts", []).append(torch.sum(chosen))
-
-    buffer = scatter_rows(E * C, buf_slot, xt[sorted_tok]).reshape(E, C, D)
+    xt = x.reshape(B * S, D)
+    buffer, entry_slot, gate, aux = dispatch(xt, layer_params["router"], cfg, stats)
 
     # ---- expert FFNs: batched einsum over the expert dim ----
     out_buf = expert_ffn(buffer, layer_params["w_gate"], layer_params["w_up"],
-                         layer_params["w_down"]).reshape(E * C, D)
-
-    # ---- combine: each (token, k) entry reads back its buffer slot ----
-    entry_slot = torch.empty_like(buf_slot)
-    entry_slot[order] = torch.where(kept, buf_slot, -1)
-    entry_out = torch.where(
-        (entry_slot >= 0)[:, None],
-        out_buf[torch.clamp(entry_slot, min=0)],
-        torch.zeros((), dtype=x.dtype, device=x.device),
-    )  # [T*K, D]
-    weighted = entry_out.reshape(T, K, D) * gate[..., None].to(x.dtype)
-    out = torch.sum(weighted, dim=1)
+                         layer_params["w_down"]).reshape(-1, D)
+    out = combine(out_buf, entry_slot, gate)
 
     # ---- shared expert (always-on, like a dense FFN) ----
     if "shared_gate" in layer_params:

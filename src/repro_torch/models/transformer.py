@@ -5,24 +5,54 @@ One code path serves all five LM architectures. Parameters keep `repro`'s
 stacked [L, ...] layout, so weights carry across unchanged; `repro`'s
 `jax.lax.scan` over the stack is a loop over layer slices here. Workloads:
 
-  loss(params, batch, cfg)                 -> scalar CE (+ MoE aux), metrics
-  prefill(params, tokens, cfg)             -> (last_logits, kv_cache)
-  decode(params, cache, token, pos, cfg)   -> (logits, new_cache)
+  loss(params, batch, cfg, rules)              -> scalar CE (+ MoE aux), metrics
+  prefill(params, tokens, cfg, stats, rules)   -> (last_logits, kv_cache)
+  decode(params, cache, token, pos, cfg, stats, rules) -> (logits, new_cache)
 
-The ParamDefs carry `repro`'s logical axes (`models/common.param_pspecs`).
-`trunk`'s `mesh` reaches the MoE layers' expert-parallel dispatch, as
-`repro`'s rules argument does; `repro`'s `constrain` calls, which GSPMD
-propagates over the rest of the forward, have no counterpart yet, so
-`trunk` refuses a mesh of more than one rank: its attention, RoPE and loss
-would see only this rank's block of the tokens.
+Across ranks. `rules` is `LM_RULES` adapted to a `DeviceMesh` (its
+"__mesh__"), as a cell of `launch/cells` gives it; each argument is this
+rank's block under the cell's specs, and so is each output. `repro`'s
+GSPMD partitions its forward from its `constrain` calls and the cells'
+shardings; here every collective is explicit, and the numbers are those of
+the whole batch's forward (`distributed/collectives` has the autograd
+collectives):
+- train (`loss`; weights in their "fsdp" layout) and prefill (weights in
+  their serving layout): the tokens split by batch over the dp dims and
+  by sequence over "model" (context parallelism). Each layer gathers its
+  weights whole from their blocks (`gather_spec`; its backward
+  reduce-scatters the gradient to the rank's block), as do the embedding
+  and output tables; a replicated leaf's gradient is summed over the
+  mesh dims that split the tokens (`sum_grad`). Attention gathers K and V
+  along the sequence over "model" (backward: a reduce-scatter) and keeps
+  its queries local: RoPE and the causal mask take the rank's global
+  positions. MoE layers take `moe_ffn_ep` on the rank's tokens. The loss
+  sums each rank's cross entropy and divides by the global token count
+  (`sum_forward`); the MoE aux is `moe_ffn_ep`'s mean over the ranks,
+  whose gradient `scale_grad` counts once. Prefill's last logits come from
+  the rank holding the sequence's last block, shared over "model", taken
+  against each rank's block of the vocabulary and gathered.
+- decode (serving layout, Megatron tensor parallelism): the batch split
+  over the dp dims (none for a context of batch 1, whose cache splits over
+  "long_kv_seq": `rules["batch"]` None), the cache's sequence over "model"
+  (or ("data", "model")). q, k, v and the FFN are row- and column-parallel
+  products (`tp_matmul`); the rank holding `pos` in its block writes the
+  new keys; attention is split-K over the cache blocks
+  (`layers.split_decode_attention`); MoE layers take `moe_ffn_tp`; the
+  embedding is looked up in each rank's vocabulary block and summed, and
+  the logits are gathered over the vocabulary's blocks.
+A mesh of one rank, or no rules, is the plain path, op for op (the mesh
+still reaches `moe_ffn_ep`, whose collectives over one rank give back
+their inputs). `train_layout="tp"` and `int8_serve` run on one rank only.
+
 `cfg.remat` recomputes each layer in the backward (`torch.utils.checkpoint`,
 non-reentrant), as `repro`'s `jax.checkpoint` of its scan body: memory,
-not numbers. `decode` is
+not numbers; a layer's weight gathers recompute with it. `decode` is
 functional as `repro`'s: it copies the caches once and writes the new
 token's keys and values into the copy.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Iterator, Tuple
 
 import torch
@@ -30,9 +60,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
-from repro_torch.distributed.expert_parallel import moe_ffn_ep
+from repro_torch.distributed import collectives
+from repro_torch.distributed.expert_parallel import moe_ffn_ep, moe_ffn_tp
+from repro_torch.distributed.sharding import P, axes_index, entry_axes, mesh_groups
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.common import ParamDef, tree_map
+from repro_torch.models.common import ParamDef, param_pspecs, tree_map
 from repro_torch.models.layers import (
     apply_norm,
     apply_rope,
@@ -40,6 +72,7 @@ from repro_torch.models.layers import (
     dense_attention,
     flash_attention,
     sparse_decode_attention,
+    split_decode_attention,
     swiglu,
 )
 
@@ -152,18 +185,124 @@ def param_defs(cfg: LMConfig) -> Dict:
 
 
 # ---------------------------------------------------------------------------
+# The layout across ranks
+# ---------------------------------------------------------------------------
+
+
+def _mesh(rules):
+    """The `DeviceMesh` of `rules`, or None (no rules, or an abstract mesh,
+    which has no ranks to run on)."""
+    mesh = None if rules is None else rules.get("__mesh__")
+    return mesh if hasattr(mesh, "get_group") else None
+
+
+def _kv_rule(rules) -> str:
+    """The rule that splits decode's cache along its sequence: a batch of 1
+    (`rules["batch"]` None, as the long_500k cell sets it) splits it over
+    "long_kv_seq", any other batch over "kv_seq" (`cache_axes`)."""
+    return "long_kv_seq" if rules.get("batch") is None else "kv_seq"
+
+
+class _Split:
+    """One call's layout across the ranks of `rules["__mesh__"]` (see the
+    module's docstring): the params' PartitionSpecs in the call's layout
+    (training's "fsdp" one, or `serve`'s), stacked and one layer's slice
+    ("layers" replicates, so a slice's spec drops that entry)."""
+
+    def __init__(self, cfg: LMConfig, rules, serve: bool):
+        self.mesh, self.rules = rules["__mesh__"], rules
+        self.specs = param_pspecs(param_defs(cfg), rules, serve=serve)
+        self.layer = {k: {n: P(*spec[1:]) for n, spec in self.specs[k].items()}
+                      for k in ("attn", "ffn", "moe") if k in self.specs}
+        self.token_axes = entry_axes(rules.get("batch")) + entry_axes(rules.get("seq"))
+
+    def groups(self, axes):
+        return mesh_groups(self.mesh, axes)
+
+    def index(self, rule: str):
+        """(this rank's block, the number of blocks) along rule's mesh dims."""
+        return axes_index(self.mesh, entry_axes(self.rules.get(rule)))
+
+    def gather(self, t: torch.Tensor, dim: int, axes) -> torch.Tensor:
+        """`t` gathered along `dim` over the mesh dims `axes`, minor first."""
+        for g in reversed(self.groups(axes)):
+            t = collectives.gather(t, dim, g)
+        return t
+
+    def weight(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """The whole leaf from this rank's block under `spec`; backward, the
+        whole batch's gradient: reduce-scattered over the dims that split
+        the leaf, summed over the other dims that split the tokens."""
+        axes = {a for e in spec for a in entry_axes(e)}
+        t = collectives.sum_grad(t, self.groups([a for a in self.token_axes if a not in axes]))
+        return collectives.gather_spec(t, spec, self.mesh)
+
+    def weights(self, tree, specs):
+        return {k: self.weight(v, specs[k]) for k, v in tree.items()}
+
+    def table(self, params):
+        """(the output table's block, its spec)."""
+        name = "lm_head" if "lm_head" in params else "embed"
+        return params[name], self.specs[name]
+
+    def tp(self, p, group: str):
+        """x @ p[name] on this rank's block of a serving-layout weight of
+        one layer (`collectives.tp_matmul`), as `mm(x, name)`."""
+        specs = self.layer[group]
+        return lambda x, name: collectives.tp_matmul(x, p[name], specs[name], self.mesh)
+
+    def lookup(self, table, ids):
+        """Rows of a table split by rows (the vocabulary): each rank takes
+        the ids in its block, zeros for the rest, summed over the dims that
+        split it. Every rank of those dims must hold the same ids."""
+        axes = entry_axes(self.specs["embed"][0])
+        index, _ = axes_index(self.mesh, axes)
+        n = table.shape[0]
+        local = ids - index * n
+        inside = (local >= 0) & (local < n)
+        rows = _take_rows(table, torch.clamp(local, 0, n - 1))
+        rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                               device=rows.device))
+        return collectives.sum_forward(rows, self.groups(axes))
+
+    def logits(self, x, params):
+        """`_logits` of x [B,S,D] against this rank's block of the output
+        table's rows, gathered over the dims that split them: [B,S,V]."""
+        table, spec = self.table(params)
+        return self.gather(_logits(x, table), 2, entry_axes(spec[0]) if len(spec) else ())
+
+
+def _split_of(cfg: LMConfig, rules, serve: bool):
+    """The call's `_Split` on a mesh of more than one rank, else None."""
+    mesh = _mesh(rules)
+    if mesh is None or mesh.size() == 1:
+        return None
+    where = f"{cfg.name} on a mesh of {mesh.size()} ranks"
+    if not serve and cfg.train_layout != "fsdp":
+        raise ValueError(f"train_layout={cfg.train_layout!r} runs on a mesh of one rank; "
+                         f"{where}: its Megatron weights inside the train step are not "
+                         "split across ranks yet (train_layout='fsdp' is)")
+    if serve and cfg.int8_serve:
+        raise ValueError(f"int8_serve runs on a mesh of one rank; {where}: its int8 "
+                         "row-parallel products are not split across ranks yet")
+    return _Split(cfg, rules, serve)
+
+
+# ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
 
-def _project_qkv(x, p, cfg: LMConfig, positions):
-    """x: [B,S,D] -> q [B,S,K,G,hd] (rope'd), k,v [B,S,K,hd] (rope'd k)."""
+def _project_qkv(x, p, cfg: LMConfig, positions, mm=None):
+    """x: [B,S,D] -> q [B,S,K,G,hd] (rope'd), k,v [B,S,K,hd] (rope'd k).
+    `mm(x, name)` takes the products (x @ p[name] by default)."""
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     G = H // K
-    q = _mm(x, p["wq"])
-    k = _mm(x, p["wk"])
-    v = _mm(x, p["wv"])
+    mm = mm or (lambda t, name: _mm(t, p[name]))
+    q = mm(x, "wq")
+    k = mm(x, "wk")
+    v = mm(x, "wv")
     if cfg.use_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd)
@@ -174,18 +313,29 @@ def _project_qkv(x, p, cfg: LMConfig, positions):
     return q.reshape(B, S, K, G, hd), k, v
 
 
-def _attention_train(x, p, cfg: LMConfig):
-    """Full-sequence attention (train/prefill). Returns (attn_out, (k, v))."""
+def _attention_train(x, p, cfg: LMConfig, split=None):
+    """Full-sequence attention (train/prefill). Returns (attn_out, (k, v)),
+    k and v this rank's block of the sequence. Across ranks the queries are
+    the rank's block of the sequence, at global positions from `q_offset`,
+    and K, V are gathered whole over the dims that split it."""
     B, S, D = x.shape
+    q_offset = 0
     positions = torch.arange(S, device=x.device).expand(B, S)
+    if split is not None:
+        q_offset = split.index("seq")[0] * S
+        positions = positions + q_offset
     q, k, v = _project_qkv(x, p, cfg, positions)
+    kv = (k, v)
+    if split is not None:
+        seq = entry_axes(split.rules.get("seq"))
+        k, v = split.gather(k, 1, seq), split.gather(v, 1, seq)
     if cfg.attn_impl == "dense":
-        out = dense_attention(q, k, v, causal=True)
+        out = dense_attention(q, k, v, causal=True, q_offset=q_offset)
     else:
-        out = flash_attention(q, k, v, causal=True, kv_chunk=cfg.q_chunk,
+        out = flash_attention(q, k, v, causal=True, kv_chunk=cfg.q_chunk, q_offset=q_offset,
                               remat_step=cfg.flash_remat)
     out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
-    return _mm(out, p["wo"]), (k, v)
+    return _mm(out, p["wo"]), kv
 
 
 def _attention_decode(x, p, cfg: LMConfig, k_cache, v_cache, pos):
@@ -208,22 +358,54 @@ def _attention_decode(x, p, cfg: LMConfig, k_cache, v_cache, pos):
     return _mm(out, p["wo"]), (k_cache, v_cache)
 
 
-def _ffn_dense(x, p):
-    if any(isinstance(p[k], dict) for k in ("w_gate", "w_up", "w_down")):
-        g = _mm(x, p["w_gate"])
-        u = _mm(x, p["w_up"])
+def _attention_decode_split(x, p, cfg: LMConfig, k_cache, v_cache, pos, split, kv):
+    """`_attention_decode` across ranks: q, k, v and the output projection
+    row-parallel, the caches this rank's block [B,T_loc,K,hd] of the
+    sequence, from global position kv["t0"] of kv["T"]. Only the rank
+    whose block holds `pos` (clamped) writes the new keys; attention is
+    split-K over kv["groups"]."""
+    B = x.shape[0]
+    T_loc = k_cache.shape[1]
+    mm = split.tp(p, "attn")
+    q, k_new, v_new = _project_qkv(x, p, cfg, pos[:, None], mm)
+    rows = torch.arange(B, device=x.device)
+    at = torch.clamp(pos, 0, kv["T"] - 1) - kv["t0"]
+    mine = ((at >= 0) & (at < T_loc))[:, None, None]
+    at = torch.clamp(at, 0, T_loc - 1)
+    k_cache[rows, at] = torch.where(mine, k_new[:, 0], k_cache[rows, at])
+    v_cache[rows, at] = torch.where(mine, v_new[:, 0], v_cache[rows, at])
+    out = split_decode_attention(q, k_cache, v_cache, pos, t0=kv["t0"], T=kv["T"],
+                                 groups=kv["groups"], sparse=cfg.sparse_attention,
+                                 window=cfg.attn_window, n_global=cfg.attn_n_global)
+    return mm(out.reshape(B, 1, cfg.n_heads * cfg.resolved_head_dim), "wo")
+
+
+def _ffn_dense(x, p, mm=None):
+    """SwiGLU; `mm(x, name)` takes the products where given (across ranks:
+    column-parallel gate and up, row-parallel down)."""
+    if mm is None and any(isinstance(p[k], dict) for k in ("w_gate", "w_up", "w_down")):
+        mm = lambda t, name: _mm(t, p[name])  # noqa: E731
+    if mm is not None:
+        g = mm(x, "w_gate")
+        u = mm(x, "w_up")
         h = F.silu(g.float()).to(x.dtype) * u
-        return _mm(h, p["w_down"])
+        return mm(h, "w_down")
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
-def _layer(x, attn_p, ffn_p, moe_p, cfg: LMConfig, decode_state=None, stats=None, mesh=None):
+def _layer(x, attn_p, ffn_p, moe_p, cfg: LMConfig, decode_state=None, stats=None, mesh=None,
+           split=None):
     """One transformer layer. decode_state: None | (k_cache, v_cache, pos).
     `stats` collects the MoE dispatch's record (see `prefill`); `mesh`
-    reaches the expert-parallel dispatch (see `trunk`)."""
+    reaches the expert-parallel dispatch (see `trunk`). `split` (train and
+    prefill across ranks) gathers the layer's weights whole first."""
+    if split is not None:
+        attn_p = split.weights(attn_p, split.layer["attn"])
+        if ffn_p is not None:
+            ffn_p = split.weights(ffn_p, split.layer["ffn"])
     h = apply_norm(x, attn_p["attn_norm"], cfg.norm_type)
     if decode_state is None:
-        attn_out, kv = _attention_train(h, attn_p, cfg)
+        attn_out, kv = _attention_train(h, attn_p, cfg, split)
     else:
         attn_out, kv = _attention_decode(h, attn_p, cfg, *decode_state)
 
@@ -240,13 +422,39 @@ def _layer(x, attn_p, ffn_p, moe_p, cfg: LMConfig, decode_state=None, stats=None
             # decode (tiny token counts) takes the plain dispatcher; train
             # and prefill the expert-parallel one, as `repro`
             if cfg.moe_impl == "ep" and decode_state is None:
-                ffn_out, aux = moe_ffn_ep(h2, moe_p, cfg, stats, mesh=mesh)
+                ffn_out, aux = moe_ffn_ep(h2, moe_p, cfg, stats, mesh=mesh,
+                                          w_specs=None if split is None else split.layer["moe"])
+            elif split is not None:
+                raise ValueError(f"moe_impl={cfg.moe_impl!r} dispatches the whole batch at once "
+                                 "and runs on a mesh of one rank; across ranks train and "
+                                 "prefill take moe_impl='ep'")
             else:
                 ffn_out, aux = moe_lib.moe_ffn(h2, moe_p, cfg, stats)
         else:
             ffn_out = _ffn_dense(h2, ffn_p)
         x = x + ffn_out
     return x, kv, aux
+
+
+def _decode_layer_split(x, attn_p, ffn_p, moe_p, cfg: LMConfig, k_cache, v_cache, pos, split,
+                        kv, stats=None):
+    """`_layer` of one decode step across ranks (serving layout): x [B,1,D]
+    this rank's block of the batch, whole along D on every rank of the
+    other dims."""
+    h = apply_norm(x, attn_p["attn_norm"], cfg.norm_type)
+    attn_out = _attention_decode_split(h, attn_p, cfg, k_cache, v_cache, pos, split, kv)
+    if cfg.parallel_block:
+        if moe_p is not None:
+            raise ValueError("parallel_block with MoE is used by no LM arch")
+        return x + attn_out + _ffn_dense(h, ffn_p, split.tp(ffn_p, "ffn"))
+    x = x + attn_out
+    h2 = apply_norm(x, attn_p["ffn_norm"], cfg.norm_type)
+    if moe_p is not None:
+        ffn_out, _ = moe_ffn_tp(h2, moe_p, cfg, stats, mesh=split.mesh, rules=split.rules,
+                                w_specs=split.layer["moe"])
+    else:
+        ffn_out = _ffn_dense(h2, ffn_p, split.tp(ffn_p, "ffn"))
+    return x + ffn_out
 
 
 def _layers(params, cfg: LMConfig) -> Iterator[Tuple[Dict, Dict, Dict]]:
@@ -274,30 +482,37 @@ def _layers(params, cfg: LMConfig) -> Iterator[Tuple[Dict, Dict, Dict]]:
 # ---------------------------------------------------------------------------
 
 
-def trunk(params, tokens, cfg: LMConfig, stats=None, mesh=None):
-    """tokens [B,S] -> hidden [B,S,D], aux loss, kv caches [L,B,S,K,hd]x2.
-    `mesh` (a DeviceMesh), where given, reaches every MoE layer's
-    `moe_ffn_ep`, as `repro`'s rules do; None is the one-group path. A
-    mesh of more than one rank is refused until the whole forward is
-    partitioned (module docstring)."""
-    if mesh is not None and mesh.size() > 1:
-        raise ValueError(f"trunk runs on a mesh of one rank; this one has {mesh.size()} "
-                         f"({dict(zip(mesh.mesh_dim_names, mesh.shape))}): the forward "
-                         "outside the MoE dispatch is not partitioned across ranks")
-    x = _take_rows(params["embed"], tokens).to(_dtype(cfg))
+def _trunk(params, tokens, cfg: LMConfig, stats, mesh, split):
+    x = _take_rows(params["embed"] if split is None
+                   else split.weight(params["embed"], split.specs["embed"]), tokens)
+    x = x.to(_dtype(cfg))
     remat = cfg.remat and cfg.remat_policy != "none" and torch.is_grad_enabled()
     ks, vs, aux = [], [], torch.zeros((), dtype=torch.float32, device=x.device)
     for attn_p, ffn_p, moe_p in _layers(params, cfg):
         if remat:  # `repro`'s "dots" policy saves the matmuls; both recompute the rest
             x, (k, v), a = checkpoint(_layer, x, attn_p, ffn_p, moe_p, cfg, None, stats, mesh,
-                                      use_reentrant=False)
+                                      split, use_reentrant=False)
         else:
-            x, (k, v), a = _layer(x, attn_p, ffn_p, moe_p, cfg, None, stats, mesh)
+            x, (k, v), a = _layer(x, attn_p, ffn_p, moe_p, cfg, None, stats, mesh, split)
         ks.append(k)
         vs.append(v)
         aux = aux + a
-    x = apply_norm(x, params["final_norm"], cfg.norm_type)
+    norm = params["final_norm"]
+    if split is not None:
+        norm = split.weight(norm, split.specs["final_norm"])
+    x = apply_norm(x, norm, cfg.norm_type)
     return x, aux, (torch.stack(ks), torch.stack(vs))
+
+
+def trunk(params, tokens, cfg: LMConfig, stats=None, rules=None, serve: bool = False):
+    """tokens [B,S] -> hidden [B,S,D], aux loss, kv caches [L,B,S,K,hd]x2.
+    With `rules` of a mesh of more than one rank, every argument and output
+    is this rank's block: the tokens' (batch, seq) block, the params'
+    blocks in the training layout (or `serve`'s), the hidden state's and
+    the caches' blocks of the same tokens (module docstring); the mesh
+    reaches every MoE layer's `moe_ffn_ep` at any size, as `repro`'s rules
+    do."""
+    return _trunk(params, tokens, cfg, stats, _mesh(rules), _split_of(cfg, rules, serve))
 
 
 # ---------------------------------------------------------------------------
@@ -318,11 +533,8 @@ def _logits(x, table):
     return torch.einsum("bsd,vd->bsv", x.float(), table.float())
 
 
-def chunked_cross_entropy(x, table, labels, n_chunks: int = 8):
-    """Streaming-logsumexp CE over vocab chunks; avoids the [B,S,V] buffer.
-
-    x: [B,S,D]; table: [V,D]; labels: [B,S] int. Returns mean CE.
-    """
+def _token_cross_entropy(x, table, labels, n_chunks: int = 8):
+    """Each token's CE [B,S] by a streaming logsumexp over vocab chunks."""
     B, S, D = x.shape
     V = table.shape[0]
     while V % n_chunks:
@@ -345,40 +557,83 @@ def chunked_cross_entropy(x, table, labels, n_chunks: int = 8):
         picked = torch.gather(logits, -1, torch.clamp(local, 0, vc - 1)[..., None])[..., 0]
         dot = dot + torch.where(in_c, picked, 0.0)
         m = m_new
-    ce = (m + torch.log(torch.clamp(l, min=1e-30))) - dot
-    return torch.mean(ce)
+    return (m + torch.log(torch.clamp(l, min=1e-30))) - dot
 
 
-def loss(params, batch, cfg: LMConfig, mesh=None) -> Tuple[torch.Tensor, Dict]:
-    """Next-token CE + MoE load-balance aux."""
-    x, aux, _ = trunk(params, batch["tokens"], cfg, mesh=mesh)
-    ce = chunked_cross_entropy(x, _output_table(params), batch["labels"])
+def chunked_cross_entropy(x, table, labels, n_chunks: int = 8):
+    """Streaming-logsumexp CE over vocab chunks; avoids the [B,S,V] buffer.
+
+    x: [B,S,D]; table: [V,D]; labels: [B,S] int. Returns mean CE.
+    """
+    return torch.mean(_token_cross_entropy(x, table, labels, n_chunks))
+
+
+def loss(params, batch, cfg: LMConfig, rules=None) -> Tuple[torch.Tensor, Dict]:
+    """Next-token CE + MoE load-balance aux. Across ranks (`trunk`) every
+    rank returns the whole batch's loss and metrics."""
+    split = _split_of(cfg, rules, serve=False)
+    x, aux, _ = _trunk(params, batch["tokens"], cfg, None, _mesh(rules), split)
+    if split is None:
+        ce = chunked_cross_entropy(x, _output_table(params), batch["labels"])
+    else:
+        table, spec = split.table(params)
+        ce = torch.sum(_token_cross_entropy(x, split.weight(table, spec), batch["labels"]))
+        n_tokens = x.shape[0] * x.shape[1] * math.prod(
+            split.mesh.size(split.mesh.mesh_dim_names.index(a)) for a in split.token_axes)
+        ce = collectives.sum_forward(ce, split.groups(split.token_axes)) / n_tokens
+        aux = collectives.scale_grad(aux, 1.0 / split.mesh.size())
     total = ce + 0.01 * aux
     return total, {"ce": ce, "aux": aux}
 
 
-def prefill(params, tokens, cfg: LMConfig, stats=None, mesh=None):
+def prefill(params, tokens, cfg: LMConfig, stats=None, rules=None):
     """Full-sequence forward; returns last-position logits + KV caches.
     `stats`, a dict, collects each MoE layer's dispatch record: the entries
     dropped at `moe_ffn_ep`'s two capacity stages, or `moe_ffn`'s under
-    `moe_impl="gspmd"` (see those): a record, not an output."""
-    x, _, (k_all, v_all) = trunk(params, tokens, cfg, stats, mesh)
-    logits = _logits(x[:, -1:, :], _output_table(params))
-    return logits[:, 0], (k_all, v_all)
+    `moe_impl="gspmd"` (see those): a record, not an output. Across ranks
+    (`trunk`, serving layout) the logits are this rank's block of the
+    batch, whole over the vocabulary, and the caches its (batch, seq)
+    block."""
+    split = _split_of(cfg, rules, serve=True)
+    x, _, (k_all, v_all) = _trunk(params, tokens, cfg, stats, _mesh(rules), split)
+    last = x[:, -1:, :]
+    if split is None:
+        return _logits(last, _output_table(params))[:, 0], (k_all, v_all)
+    index, ways = split.index("seq")
+    if index != ways - 1:  # the sequence's last row lies on the last block's ranks
+        last = torch.zeros_like(last)
+    last = collectives.sum_forward(last, split.groups(entry_axes(split.rules.get("seq"))))
+    return split.logits(last, params)[:, 0], (k_all, v_all)
 
 
-def decode(params, cache, token, pos, cfg: LMConfig, stats=None):
+def decode(params, cache, token, pos, cfg: LMConfig, stats=None, rules=None):
     """One decode step. cache: (k [L,B,T,K,hd], v [L,B,T,K,hd]);
     token: [B] int; pos: [B] current positions. Returns (logits, cache),
     the cache a new pair of tensors (the arguments are not modified).
-    `stats`: as `prefill`'s; decode takes `moe_ffn`."""
+    `stats`: as `prefill`'s; decode takes `moe_ffn` (`moe_ffn_tp` across
+    ranks, module docstring: the cache is this rank's block along the
+    batch and the sequence, token and pos its block of the batch, the
+    logits its block of the batch, whole over the vocabulary)."""
+    split = _split_of(cfg, rules, serve=True)
     k_out, v_out = (c.clone() for c in cache)
-    x = _take_rows(params["embed"], token[:, None]).to(_dtype(cfg))
+    if split is None:
+        x = _take_rows(params["embed"], token[:, None]).to(_dtype(cfg))
+        for i, (attn_p, ffn_p, moe_p) in enumerate(_layers(params, cfg)):
+            x, _, _ = _layer(x, attn_p, ffn_p, moe_p, cfg, (k_out[i], v_out[i], pos), stats)
+        x = apply_norm(x, params["final_norm"], cfg.norm_type)
+        logits = _logits(x, _output_table(params))
+        return logits[:, 0], (k_out, v_out)
+
+    kv_axes = entry_axes(split.rules.get(_kv_rule(split.rules)))
+    index, ways = axes_index(split.mesh, kv_axes)
+    T_loc = k_out.shape[2]
+    kv = {"t0": index * T_loc, "T": ways * T_loc, "groups": split.groups(kv_axes)}
+    x = split.lookup(params["embed"], token[:, None]).to(_dtype(cfg))
     for i, (attn_p, ffn_p, moe_p) in enumerate(_layers(params, cfg)):
-        x, _, _ = _layer(x, attn_p, ffn_p, moe_p, cfg, (k_out[i], v_out[i], pos), stats)
+        x = _decode_layer_split(x, attn_p, ffn_p, moe_p, cfg, k_out[i], v_out[i], pos, split,
+                                kv, stats)
     x = apply_norm(x, params["final_norm"], cfg.norm_type)
-    logits = _logits(x, _output_table(params))
-    return logits[:, 0], (k_out, v_out)
+    return split.logits(x, params)[:, 0], (k_out, v_out)
 
 
 # ---------------------------------------------------------------------------

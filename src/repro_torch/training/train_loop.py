@@ -19,7 +19,16 @@ that split the batch (`rules["batch"]`), and a leaf split by rows keeps
 its block. The clip's norm counts each element once over the mesh: a
 leaf's squares are summed over the dims its spec splits it over. The
 update is each rank's on its blocks, so the optimizer must be elementwise
-(`Optimizer.elementwise`: SGD and AdamW, not adam8bit).
+(`Optimizer.elementwise`: SGD and AdamW, not adam8bit). Under
+`whole_grads` (the LM's loss, whose collectives give each rank its block
+of the whole batch's gradient: `models/transformer`) the step sums
+nothing itself.
+
+`grad_accum` splits the global batch as `repro` does: microbatch i is the
+global rows [i·B/a, (i+1)·B/a). Across ranks a rank holds a block of
+the global batch, not of each microbatch, so the step first gathers the
+batch over the mesh dims that split it (integer ids, a few bytes a row)
+and takes this rank's block of each microbatch.
 """
 from __future__ import annotations
 
@@ -27,8 +36,9 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.distributed.collectives import sum_in_place
-from repro_torch.distributed.sharding import entry_axes, mesh_groups, rule_groups
+from repro_torch.distributed.collectives import gather, sum_in_place
+from repro_torch.distributed.sharding import (
+    axes_index, entry_axes, mesh_groups, rule_groups)
 from repro_torch.models.common import (
     float_tree, merge_tree, tree_from_leaves, tree_leaves, tree_map)
 from repro_torch.training.optimizer import Optimizer
@@ -64,6 +74,28 @@ def _sum_parts(grads, rules):
     return grads
 
 
+def _microbatches(batch, grad_accum: int, rules, mesh):
+    """Each microbatch of the global batch (leading axis), this rank's
+    block of it across the ranks of `mesh`."""
+    if mesh is None:
+        return [{k: v.reshape((grad_accum, v.shape[0] // grad_accum) + v.shape[1:])[i]
+                 for k, v in batch.items()} for i in range(grad_accum)]
+    axes = entry_axes(rules.get("batch"))
+    index, ways = axes_index(mesh, axes)
+    whole = {}
+    for k, v in batch.items():
+        for g in reversed(mesh_groups(mesh, axes)):  # minor first: major ends outermost
+            v = gather(v, 0, g)
+        whole[k] = v
+    rows = next(iter(whole.values())).shape[0]
+    if rows % (grad_accum * ways):
+        raise ValueError(f"grad_accum={grad_accum} microbatches over {ways} batch blocks do "
+                         f"not divide the global batch of {rows}")
+    n = rows // (grad_accum * ways)  # a rank's rows of a microbatch
+    return [{k: v[(i * ways + index) * n:(i * ways + index + 1) * n] for k, v in whole.items()}
+            for i in range(grad_accum)]
+
+
 def value_and_grad(loss_fn: Callable, params, batch, rules=None):
     """(loss, metrics, grads): `loss_fn(params, batch)` and the gradient of
     every float leaf of `params` (a tree of those leaves). Across the ranks
@@ -82,13 +114,15 @@ def make_train_step(
     grad_clip: float = 1.0,
     rules=None,
     param_specs=None,
+    whole_grads: bool = False,
 ) -> Callable:
     """loss_fn(params, batch) -> (scalar, metrics dict). `rules` and
     `param_specs` (the params' PartitionSpec tree under those rules) make
     the step one across the ranks of `rules["__mesh__"]` (see the module's
-    docstring); a mesh of one rank, or none, is the one-rank step. A
-    step across ranks refuses, when called, an optimizer that is not
-    elementwise and `grad_accum` > 1."""
+    docstring); a mesh of one rank, or none, is the one-rank step.
+    `whole_grads`: `loss_fn`'s backward gives each rank its block of the
+    whole batch's gradient already, and the step sums none. A step across
+    ranks refuses, when called, an optimizer that is not elementwise."""
 
     def check(mesh):
         if not optimizer.elementwise:
@@ -96,9 +130,6 @@ def make_train_step(
                              "(adam8bit), which a rank's block of a split leaf would cut "
                              "differently from the whole leaf's: a train step across ranks "
                              "takes an elementwise one (sgd, adamw)")
-        if grad_accum > 1:
-            raise ValueError("grad_accum splits the global batch into microbatches; a rank "
-                             "holds a block of it, so a step across ranks takes grad_accum=1")
         if param_specs is None:
             raise ValueError("a train step across ranks needs the params' PartitionSpecs")
 
@@ -107,20 +138,20 @@ def make_train_step(
         if mesh is not None:
             check(mesh)
         paths, leaves = zip(*tree_leaves(float_tree(params)))
+        sum_rules = None if whole_grads else rules
         if grad_accum > 1:
             # microbatch over the leading batch axis
             loss = 0.0
             grads = [torch.zeros_like(p) for p in leaves]
-            for i in range(grad_accum):
-                mb = {k: v.reshape((grad_accum, v.shape[0] // grad_accum) + v.shape[1:])[i]
-                      for k, v in batch.items()}
+            for mb in _microbatches(batch, grad_accum, rules, mesh):
                 loss_i, metrics, grads_i = _grads(loss_fn, params, paths, leaves, mb)
                 grads = [a + g for a, g in zip(grads, grads_i)]
                 loss = loss + loss_i
+            grads = _sum_parts(grads, sum_rules)
             loss = loss / grad_accum
             grads = [g / grad_accum for g in grads]
-        else:  # `check` has refused grad_accum > 1 across ranks
-            loss, metrics, tree = value_and_grad(loss_fn, params, batch, rules)
+        else:
+            loss, metrics, tree = value_and_grad(loss_fn, params, batch, sum_rules)
             grads = [g for _, g in tree_leaves(tree)]
 
         with torch.no_grad():

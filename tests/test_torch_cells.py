@@ -7,9 +7,9 @@ each on both production meshes as an abstract mesh (`repro`'s on
 `jax.sharding.AbstractMesh`): the name, `meta` and `donate` equal
 `repro`'s, every arg lies on the "meta" device (no storage) with
 `repro`'s shape and dtype, and the specs of every arg and output equal
-`repro`'s shardings' specs, leaf for leaf. An LM or GNN cell's `fn`, and
-a recsys train cell's under adam8bit, refuse a mesh of two gloo ranks and
-name why.
+`repro`'s shardings' specs, leaf for leaf. A GNN cell's `fn`, an LM
+cell's under `train_layout="tp"` or `int8_serve`, and a train cell's under
+adam8bit refuse a mesh of two gloo ranks and name why.
 """
 import pytest
 
@@ -87,17 +87,25 @@ def test_cell_equals_repros(arch, shape, overrides, mesh):
 
 
 def test_lm_and_gnn_cells_and_adam8bit_refuse_two_ranks(tmp_path):
-    """The LM and GNN forwards are not split across ranks, and adam8bit's
-    blocks of 256 would cut a rank's block of a split leaf differently
-    from the whole leaf's: each `fn` refuses the (1, 2) mesh and says why."""
-    cases = [("yi_6b", "train_4k", "adamw"), ("yi_6b", "prefill_32k", "adamw"),
-             ("yi_6b", "decode_32k", "adamw"), ("nequip", "molecule", "adamw"),
-             ("taobao_ssa", "train_batch", "adam8bit")]
+    """The LM cells under `train_layout="tp"` and `int8_serve` and the GNN
+    forward are not split across ranks, and adam8bit's blocks of 256 would
+    cut a rank's block of a split leaf differently from the whole leaf's:
+    each `fn` refuses the (1, 2) mesh and says why."""
+    cases = [("yi_6b", "train_4k", "adamw", {"train_layout": "tp"}),
+             ("yi_6b", "prefill_32k", "adamw", {"int8_serve": True}),
+             ("yi_6b", "decode_32k", "adamw", {"int8_serve": True}),
+             ("yi_6b", "long_500k", "adamw", {"int8_serve": True}),
+             ("nequip", "molecule", "adamw", None),
+             ("yi_6b", "train_4k", "adam8bit", None),
+             ("taobao_ssa", "train_batch", "adam8bit", None)]
     ranks = torch_ranks.run_ranks(torch_ranks.refuse_cell_rank, 2, tmp_path, cases)
     for rank in ranks:
-        for (arch, shape, optimizer), msg in zip(cases, rank):
+        for (arch, shape, optimizer, overrides), msg in zip(cases, rank):
             assert msg is not None, (arch, shape)
             if optimizer == "adam8bit":
                 assert "blocks of 256" in msg and "elementwise" in msg
+            elif overrides:
+                assert f"{next(iter(overrides))}" in msg and "runs on a mesh of one rank" in msg
+                assert "on a mesh of 2 ranks" in msg, (arch, shape)
             else:
                 assert "mesh of one rank" in msg and "has 2" in msg, (arch, shape)

@@ -42,7 +42,13 @@ Tolerances:
 - embedding_bag's row range: as embedding_bag above, against the plain
   version on the same block; the block's table gradient the CPU's bits;
 - a recsys serve call through a one-rank NCCL mesh (`launch/cells`): the
-  plain call's bits and launches.
+  plain call's bits and launches;
+- the LM's split-K decode attention (`layers.split_decode_attention`) over
+  two gloo ranks sharing the card, each on its half of the cache: within
+  1e-5 of the largest output of the whole cache's decode attention (f32:
+  the softmax's sums in another order), 3e-2 in bf16 (the plain version
+  rounds its probabilities to bf16), finite where a rank holds no key that
+  counts, the same on both ranks.
 """
 import pytest
 
@@ -1404,3 +1410,34 @@ def test_recsys_serve_through_a_one_rank_nccl_mesh_is_the_plain_call_on_card(ncc
     torch.cuda.synchronize()
     (mesh_out, mesh_launches), (plain_out, plain_launches) = runs
     assert torch.equal(mesh_out, plain_out) and mesh_launches == plain_launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_decode_attention_over_two_ranks_on_card_matches_the_whole(cuda_device, dtype,
+                                                                        tmp_path):
+    import torch_ranks
+    from repro_torch.models.layers import decode_attention, sparse_decode_attention
+
+    rng = np.random.default_rng(0)
+    B, T, K, G, hd = 4, 256, 2, 2, 32
+    # rows at 0 and 100: no key on rank 1 (dense), none in its half for the
+    # C2 pattern either; 127 ends rank 0's half; 250 spans both
+    pos = np.array([0, 100, 127, 250], np.int64)
+    cases = [{"q": rng.standard_normal((B, 1, K, G, hd)).astype(np.float32),
+              "k": rng.standard_normal((B, T, K, hd)).astype(np.float32),
+              "v": rng.standard_normal((B, T, K, hd)).astype(np.float32),
+              "pos": pos, "sparse": sparse, "window": 64, "n_global": 16, "dtype": dtype}
+             for sparse in (False, True)]
+    ranks = torch_ranks.run_ranks(torch_ranks.split_decode_rank, 2, tmp_path, "cuda", cases)
+    dt = getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    for i, c in enumerate(cases):
+        q, k, v = (torch.from_numpy(c[n]).to(cuda_device).to(dt) for n in ("q", "k", "v"))
+        p = torch.from_numpy(c["pos"]).to(cuda_device)
+        whole = (sparse_decode_attention(q, k, v, p, window=64, n_global=16) if c["sparse"]
+                 else decode_attention(q, k, v, p)).float().cpu().numpy()
+        for r in ranks:
+            assert np.isfinite(r[i]).all()
+            assert np.abs(r[i] - whole).max() <= tol * np.abs(whole).max(), (i, dtype)
+        assert np.array_equal(ranks[0][i], ranks[1][i])

@@ -295,10 +295,12 @@ def test_test_mesh_constrain_and_a_moe_transformer_through_the_mesh(layouts):
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 1)])
 def test_a_moe_transformer_refuses_a_mesh_of_two_ranks(shape, layouts):
-    # attention, RoPE and the loss are not partitioned: a mesh that shards
-    # the tokens over two ranks would compute another model than repro's
+    # the forward is split across ranks in the "fsdp" training layout and
+    # the serving one; train_layout="tp" and int8_serve are not, and a mesh
+    # of two ranks is refused for them
     for r in layouts[4]:
-        for name in ("loss", "prefill"):
+        for name, what in (("loss", "train_layout='tp'"), ("prefill", "int8_serve")):
             msg = r[(shape, name)]
             assert msg is not None, (shape, name)
-            assert msg.startswith("trunk runs on a mesh of one rank; this one has 2 ")
+            assert msg.startswith(f"{what} runs on a mesh of one rank; "), msg
+            assert "on a mesh of 2 ranks" in msg, msg

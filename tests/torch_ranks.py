@@ -62,14 +62,16 @@ class Reference:
     """A `repro` script run in a subprocess on `n_devices` forced CPU
     devices (`XLA_FLAGS`, which the pytest process never sets), started
     before the ranks so that the two run at once. `wait()` gives its
-    standard output; past `TIMEOUT_S` from its start it is killed."""
+    standard output; past `timeout` (`TIMEOUT_S`) from its start it is
+    killed."""
 
-    def __init__(self, script: str, args, n_devices: int, xla_flags: str = ""):
+    def __init__(self, script: str, args, n_devices: int, xla_flags: str = "",
+                 timeout: float = TIMEOUT_S):
         repo = Path(__file__).resolve().parents[1]
         env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"), "PYTHONPATH": str(repo / "src"),
                "JAX_PLATFORMS": "cpu", "HOME": os.environ.get("HOME", "/tmp"),
                "XLA_FLAGS": f"--xla_force_host_platform_device_count={n_devices} {xla_flags}"}
-        self.deadline = time.monotonic() + TIMEOUT_S
+        self.deadline = time.monotonic() + timeout
         self.proc = subprocess.Popen([sys.executable, "-c", script, *map(str, args)], env=env,
                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
@@ -159,12 +161,14 @@ def compression_rank(rank, world, grads, steps):
 
 
 def refuse_rank(rank, world):
-    """A reduced MoE transformer's `loss` and `prefill` on each mesh of this
-    world's two ranks, (1, 2) and (2, 1): the message of each refusal, or
-    None where the call went through."""
+    """A reduced MoE transformer's `loss` under `train_layout="tp"` and its
+    `prefill` under `int8_serve`, the two layouts not split across ranks,
+    on each mesh of this world's two ranks, (1, 2) and (2, 1): the message
+    of each refusal, or None where the call went through."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
+    from repro_torch.distributed.sharding import LM_RULES, adapt_rules
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer
     from repro_torch.models.common import init_params
@@ -175,12 +179,14 @@ def refuse_rank(rank, world):
     params = init_params(transformer.param_defs(cfg), torch.Generator().manual_seed(0), "cpu")
     tokens = torch.randint(0, 64, (2, 8), generator=torch.Generator().manual_seed(1))
     batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    tp, int8 = (dataclasses.replace(cfg, **kw) for kw in ({"train_layout": "tp"},
+                                                          {"int8_serve": True}))
     out = {}
     for shape in ((1, 2), (2, 1)):
-        mesh = make_mesh(shape, ("data", "model"), "cpu")
-        for name, call in (("loss", lambda: transformer.loss(params, batch, cfg, mesh=mesh)),
-                           ("prefill", lambda: transformer.prefill(params, tokens, cfg,
-                                                                   mesh=mesh))):
+        rules = adapt_rules(LM_RULES, make_mesh(shape, ("data", "model"), "cpu"))
+        for name, call in (("loss", lambda: transformer.loss(params, batch, tp, rules)),
+                           ("prefill", lambda: transformer.prefill(params, tokens, int8,
+                                                                   rules=rules))):
             try:
                 call()
                 out[(shape, name)] = None
@@ -261,7 +267,8 @@ def mesh_rank(rank, world):
     runs = []
     for m in (None, mesh):
         leaves = {k: v.detach().requires_grad_() for k, v in tree_leaves(params)}
-        loss, _ = transformer.loss(tree_from_leaves(leaves.items()), batch, cfg, mesh=m)
+        loss, _ = transformer.loss(tree_from_leaves(leaves.items()), batch, cfg,
+                                   None if m is None else rules)
         runs.append([loss] + list(torch.autograd.grad(loss, list(leaves.values()))))
     same = all(torch.equal(a, b) for a, b in zip(*runs))
     return {"shape": tuple(mesh.shape), "names": mesh.mesh_dim_names,
@@ -294,6 +301,8 @@ def cut(tree, specs, mesh, coord):
 
     if isinstance(tree, dict):
         return {k: cut(v, specs[k], mesh, coord) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(cut(v, s, mesh, coord) for v, s in zip(tree, specs))
     a = np.asarray(tree)
     return tensor_from_numpy(np.array(a[block_slices(a.shape, specs, mesh, coord)], order="C"))
 
@@ -354,19 +363,182 @@ def recsys_rank(rank, world, mesh_shapes, cases):
 
 
 def refuse_cell_rank(rank, world, cases):
-    """Each (arch, shape, optimizer) cell built on the (1, 2) mesh of this
-    world's two ranks and its `fn` called on the cell's own "meta" args:
-    the message of each refusal, or None where the call went through."""
+    """Each (arch, shape, optimizer, overrides) cell built on the (1, 2)
+    mesh of this world's two ranks and its `fn` called on the cell's own
+    "meta" args: the message of each refusal, or None where the call went
+    through."""
     from repro_torch.launch.cells import build_cell
     from repro_torch.launch.mesh import make_mesh
 
     mesh = make_mesh((1, 2), ("data", "model"), "cpu")
     out = []
-    for arch, shape, optimizer in cases:
-        cell = build_cell(arch, shape, mesh, optimizer=optimizer)
+    for arch, shape, optimizer, overrides in cases:
+        cell = build_cell(arch, shape, mesh, optimizer=optimizer, overrides=overrides)
         try:
             cell.fn(*cell.args)
             out.append(None)
         except ValueError as e:
             out.append(str(e))
+    return out
+
+
+def _lm_args(case, params, cell, cut_fn):
+    """A case's arguments for its cell: the arch's params, a fresh AdamW
+    state for a step, then the case's own (`cut_fn(tree, spec)` gives the
+    blocks a rank holds)."""
+    from repro_torch.distributed.sharding import P
+    from repro_torch.training.optimizer import get_optimizer
+
+    specs = list(cell.in_specs)
+    p = cut_fn(params[case["arch"]], spec_tree(params[case["arch"]], specs[0]))
+    if case["kind"] == "step":
+        return [p, get_optimizer("adamw").init(p), cut_fn(case["args"][0], specs[2])]
+    if case["kind"] == "grad":
+        return [p, cut_fn(case["args"][0], specs[2])]
+    if case["kind"] == "decode":  # a row of tokens a step
+        specs[2] = P(None, *specs[2])
+    return [p] + [cut_fn(a, s) for a, s in zip(case["args"], specs[1:])]
+
+
+def _lm_call(case, cell, args, rules):
+    """The case's outputs (see `lm_rank`)."""
+    from repro_torch.models import transformer
+    from repro_torch.training.train_loop import value_and_grad
+
+    kind, cfg = case["kind"], case["cfg"]
+    with torch.set_grad_enabled(kind in ("grad", "step")):
+        if kind == "grad":
+            loss, _, grads = value_and_grad(
+                lambda p, b: transformer.loss(p, b, cfg, rules), args[0], args[1])
+            return loss, grads
+        if kind == "decode":
+            params, cache, tokens, pos = args
+            logits = []
+            for t in range(tokens.shape[0]):
+                lg, cache = cell.fn(params, cache, tokens[t], pos + t)
+                logits.append(lg)
+            return torch.stack(logits), cache
+        return cell.fn(*args)
+
+
+def lm_rank(rank, world, mesh_shapes, cases, params):
+    """Each LM case through `launch/cells.build_cell` on its mesh of this
+    world's ranks (gloo, on the CPU), on this rank's blocks of the case's
+    whole numpy arguments (`cut` under the cell's `in_specs`). `params`
+    holds each arch's whole numpy params. A case is a dict: "arch",
+    "shape_name", "shape" (an `LMShape`), "cfg" (the port's config), "mesh"
+    (its shape, one of `mesh_shapes`), "accum", "kind" and "args" (the rest
+    of the cell's arguments): "grad" (the loss and its gradients in the
+    training layout; args (batch,)), "step" (the train cell's step from a
+    fresh AdamW state; args (batch,)), "prefill" (args (tokens,)),
+    "decode" (the decode cell stepped once a row of tokens [n, B], at
+    pos, pos + 1, ...; args (cache, tokens, pos)). Returns {mesh shape: per
+    case of that mesh (in `cases` order) this rank's coordinate and its
+    blocks of the outputs, in numpy; a decode's outputs are (its logits
+    stacked over the steps, the last cache)}."""
+    from repro_torch.distributed.sharding import LM_RULES, adapt_rules
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import axis_names, make_mesh
+
+    results = {}
+    for mesh_shape in mesh_shapes:
+        mesh = make_mesh(mesh_shape, axis_names(mesh_shape), "cpu")
+        coord = tuple(mesh.get_coordinate())
+        rules = adapt_rules(LM_RULES, mesh)
+        out = results[tuple(mesh_shape)] = []
+        for case in cases:
+            if tuple(case["mesh"]) != tuple(mesh_shape):
+                continue
+            cell = build_cell(case["arch"], case["shape_name"], mesh, cfg=case["cfg"],
+                              shape=case["shape"], accum=case["accum"])
+            args = _lm_args(case, params, cell, lambda t, s: cut(t, s, mesh, coord))
+            out.append({"coord": coord, "out": _numpy_tree(_lm_call(case, cell, args, rules))})
+    return results
+
+
+def one_rank_lm(rank, world, cases, params):
+    """On a world of one rank, each case of `lm_rank`'s through its cell on
+    the (1, 1) mesh against the plain call (no rules) on the same whole
+    arguments: whether every output has the same bits."""
+    from repro_torch.distributed.sharding import LM_RULES, adapt_rules
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.train_loop import make_train_step
+
+    mesh = make_test_mesh("cpu")
+    same = []
+    for case in cases:
+        cfg = case["cfg"]
+        cell = build_cell(case["arch"], case["shape_name"], mesh, cfg=cfg, shape=case["shape"],
+                          accum=case["accum"])
+        args = _lm_args(case, params, cell, lambda t, s: _tensors(t))
+        got = _lm_call(case, cell, args, adapt_rules(LM_RULES, mesh))
+        if case["kind"] == "step":
+            plain = make_train_step(lambda p, b: transformer.loss(p, b, cfg),
+                                    opt_lib.get_optimizer("adamw"), grad_accum=case["accum"])
+            ref = plain(*args)
+        else:
+            with torch.no_grad():
+                if case["kind"] == "prefill":
+                    ref = transformer.prefill(*args, cfg)
+                else:
+                    params_, cache, tokens, pos = args
+                    logits = []
+                    for t in range(tokens.shape[0]):
+                        lg, cache = transformer.decode(params_, cache, tokens[t], pos + t, cfg)
+                        logits.append(lg)
+                    ref = torch.stack(logits), cache
+        leaves = [[t for _, t in tree_leaves(_as_dicts(r))] for r in (got, ref)]
+        same.append(len(leaves[0]) == len(leaves[1])
+                    and all(torch.equal(a, b) for a, b in zip(*leaves)))
+    return same
+
+
+def _tensors(tree):
+    """A tree of numpy arrays (dicts, tuples) as CPU tensors."""
+    from repro_torch.models.common import tensor_from_numpy
+
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tensors(v) for v in tree)
+    return tensor_from_numpy(tree)
+
+
+def _as_dicts(tree):
+    """Tuples of a result tree as dicts keyed by position (for `tree_leaves`)."""
+    if isinstance(tree, (tuple, list)):
+        return {str(i): _as_dicts(v) for i, v in enumerate(tree)}
+    if isinstance(tree, dict):
+        return {k: _as_dicts(v) for k, v in tree.items()}
+    return tree
+
+
+def split_decode_rank(rank, world, device, cases):
+    """`layers.split_decode_attention` on this rank's block of each case's
+    whole cache, the sequence split over the world group in rank order. A
+    case is a dict of numpy q [B,1,K,G,hd], k, v [B,T,K,hd], pos [B], and
+    "sparse", "window", "n_global", "dtype". Returns each output as f32
+    numpy."""
+    import torch.distributed as dist
+
+    from repro_torch.models.layers import split_decode_attention
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    out = []
+    for c in cases:
+        dt = getattr(torch, c["dtype"])
+        T = c["k"].shape[1]
+        n = T // world
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+        o = split_decode_attention(
+            put(c["q"]).to(dt), put(c["k"][:, rank * n:(rank + 1) * n]).to(dt),
+            put(c["v"][:, rank * n:(rank + 1) * n]).to(dt), put(c["pos"]), t0=rank * n, T=T,
+            groups=(dist.group.WORLD,), sparse=c["sparse"], window=c["window"],
+            n_global=c["n_global"])
+        out.append(o.float().cpu().numpy())
     return out
