@@ -215,6 +215,19 @@ rule).
    ("data", "model")); each rank's ms, peak GB and largest difference from
    the one-rank call's block, held at `LM_RANK_*_TOL` (an MoE arch's bf16
    decode is recorded, its f32 decode held: see `LM_RANK_F32_TOL`).
+21. dryrun — run right after the build, while the card holds nothing
+   else: `launch/dryrun`, which launches no kernel. (a) fm serve_p99 and
+   yi_6b decode_32k on the 16x16 mesh (fake process groups of 256 ranks,
+   one process each) on fake cuda tensors give the record of fake cpu
+   tensors, all but `device` and `timings`; (b) DIEN's AdamW step at
+   `REC_CUTS`' 51,200 examples run for real (in a process of its own, so
+   that its ~79 GB peak pins no cached segment of this process) through a
+   one-rank NCCL mesh under the dry run's counter (`launch/hlo_stats.count`) gives the dry
+   run's dot flops, kernel calls and work and collectives on a fake (1, 1)
+   mesh, and launches as many kernels as the dry run counts calls (these
+   launches stay out of the `kernels` line); (c) that call's
+   `max_memory_allocated` over the dry run's `peak_bytes`, printed beside
+   the card's name and power limit, within `DRYRUN_MEM_RATIO`.
 The kernels phase also runs `embedding_bag`'s row range (51,200 ids into
 one block of the item table split 2 and 4 ways).
 
@@ -251,7 +264,7 @@ from repro_torch.kernels.augru import ops as augru_ops  # noqa: E402
 from repro_torch.kernels.augru.ref import augru_ref  # noqa: E402
 from repro_torch.kernels.block_pruned_matmul import block_pruned_matmul as bpm_kernel  # noqa: E402
 from repro_torch.launch import (  # noqa: E402
-    bench_kernels, cells, compress_and_serve, quickstart, serve, train,
+    bench_kernels, cells, compress_and_serve, hlo_stats, quickstart, serve, train,
 )
 from repro_torch.launch.bench_kernels import bound, time_ms  # noqa: E402
 from repro_torch.launch.train import make_data  # noqa: E402
@@ -3036,10 +3049,171 @@ def phase_lm_ranks() -> dict:
     return launches
 
 
+# phase 21: the dry run (`launch/dryrun`): cells traced on fake tensors over
+# a fake process group, counted by `launch/hlo_stats.Counter`; run right
+# after the build, while the card holds nothing else
+DRYRUN_CELLS = (("fm", "serve_p99"), ("yi_6b", "decode_32k"))  # (a): 16x16, cuda vs cpu
+DRYRUN_REAL = ("dien", "train_batch")  # (b), (c): at REC_CUTS' size on one rank
+# (c): the real call's `max_memory_allocated` over the dry run's `peak_bytes`
+# must lie in this range: 1.0097 measured (78.67 GB over 77.91) on an NVIDIA
+# H100 80GB HBM3 at 700 W, torch 2.11 (PERF.md §6)
+DRYRUN_MEM_RATIO = (0.99, 1.03)
+DRYRUN_TIMEOUT_S = 240
+_DRYRUN_ONE_RANK = """
+import dataclasses, json, sys
+from repro_torch.configs.shapes import RECSYS_SHAPES
+from repro_torch.launch import dryrun
+arch, shape_name, n, out = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4]
+full = RECSYS_SHAPES[shape_name]
+size = {"n_candidates": n} if full.kind == "retrieval" else {"batch": n}
+rec = dryrun.run_on_mesh(arch, shape_name, (1, 1), "cuda", shape=dataclasses.replace(full, **size))
+open(out, "w").write(json.dumps(rec))
+"""
+
+
+def _dryrun_runs(out_dir: Path, n: int) -> dict:
+    """The dry runs of phase 21, each a process of its own (a fake process
+    group is process-global), started together: `DRYRUN_CELLS` at 16x16 on
+    fake cuda and cpu tensors through the command line, and `DRYRUN_REAL`
+    at `n` examples on a fake (1, 1) mesh on fake cuda tensors. Returns the
+    records."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cmds = {(arch, shape, dev): [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                                 arch, "--shape", shape, "--mesh", "single", "--device", dev,
+                                 "--results", str(out_dir / dev)]
+            for arch, shape in DRYRUN_CELLS for dev in ("cuda", "cpu")}
+    cmds["one_rank"] = [sys.executable, "-c", _DRYRUN_ONE_RANK, *DRYRUN_REAL, str(n),
+                        str(out_dir / "one_rank.json")]
+    procs = {k: subprocess.Popen(c, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True) for k, c in cmds.items()}
+    try:
+        for k, p in procs.items():
+            _, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"dry run {k} failed:\n{err[-4000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    recs = {k: json.loads((out_dir / k[2] / f"{k[0]}__{k[1]}__single.json").read_text())
+            for k in cmds if k != "one_rank"}
+    recs["one_rank"] = json.loads((out_dir / "one_rank.json").read_text())
+    return recs
+
+
+def dryrun_real_step(n: int, out: str) -> None:
+    """Phase 21 (b) and (c)'s real call, in a process of its own (so that
+    its ~79 GB peak leaves no cached segment pinned in the parent):
+    `DRYRUN_REAL` at `n` examples, weights and batch from seed 21, through a
+    one-rank NCCL mesh under `hlo_stats.count`. Writes to `out` the stats,
+    memory, launches, `max_memory_allocated` over the call (after
+    `reset_peak_memory_stats`, the card holding the call's arguments only)
+    and what was allocated before it."""
+    import torch.distributed as dist
+
+    serve.disable_tf32()
+    arch, shape_name = DRYRUN_REAL
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_real_"))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(root / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        cell = cells.build_cell(arch, shape_name, make_test_mesh("cuda"),
+                                shape=_sized(RECSYS_SHAPES[shape_name], n))
+        args = _rec_args(get_config(arch), cell, torch.Generator(device="cuda").manual_seed(21))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        serve.reset_launch_counts()
+        _, stats, mem = hlo_stats.count(cell.fn, args, cell.donate)
+        torch.cuda.synchronize()
+        rec = {"stats": stats, "memory": mem, "launches": serve.launch_counts(),
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "allocated_before": before}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    Path(out).write_text(json.dumps(rec))
+
+
+def phase_dryrun() -> dict:
+    """Phase 21: (a) `DRYRUN_CELLS` traced on fake cuda tensors give the
+    record of fake cpu tensors, all but `device` and `timings`; (b)
+    `DRYRUN_REAL` run for real on the card through a one-rank NCCL mesh
+    under the same counter (`dryrun_real_step`) gives the dry run's dot
+    flops, kernel calls and work and collectives on a fake (1, 1) mesh, and
+    its launches equal the dry run's kernel calls; (c) the real call's
+    `max_memory_allocated` over the dry run's `peak_bytes`, beside the
+    card's name and power limit, within `DRYRUN_MEM_RATIO`. Every run is a
+    process of its own; this one touches no card memory."""
+    t0 = time.perf_counter()
+    n = REC_CUTS[DRYRUN_REAL]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    try:
+        recs = _dryrun_runs(root, n)
+        t_dry = time.perf_counter() - t0
+        same = {}
+        for a, s in DRYRUN_CELLS:
+            on = [{k: v for k, v in recs[(a, s, dev)].items() if k not in ("device", "timings")}
+                  for dev in ("cuda", "cpu")]
+            same[f"{a}:{s}"] = on[0] == on[1]
+            emit({"phase": "dryrun", "part": "a", "cell": f"{a}:{s}", "mesh": on[0]["mesh"],
+                  "same_record": same[f"{a}:{s}"], "flops": on[0]["flops"],
+                  "bytes_accessed": on[0]["bytes_accessed"],
+                  "collectives": on[0]["collectives"]["total"], "kernels": on[0]["kernels"],
+                  "peak_bytes": on[0]["peak_bytes"],
+                  "trace_s": {dev: recs[(a, s, dev)]["timings"]["trace_s"]
+                              for dev in ("cuda", "cpu")}})
+        dry = recs["one_rank"]
+        cmd = [sys.executable, "-c", "import sys, chip_smoke as c; "
+               "c.dryrun_real_step(int(sys.argv[1]), sys.argv[2])", str(n),
+               str(root / "real.json")]
+        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True,
+                              timeout=DRYRUN_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"the real step failed:\n{proc.stderr[-4000:]}")
+        real = json.loads((root / "real.json").read_text())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stats, mem, launches, peak = (real[k] for k in ("stats", "memory", "launches",
+                                                     "max_memory_allocated"))
+    calls = {k: v["calls"] for k, v in dry["kernels"].items()}
+    checks = {"flops": stats["flops"] == dry["flops"],
+              "kernels": stats["kernels"] == dry["kernels"],
+              "collectives": stats["collectives"] == dry["collectives"],
+              "launches": {k: v for k, v in launches.items() if v} == calls,
+              "argument_bytes": mem["argument_bytes"] == dry["memory"]["argument_bytes"]}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip()
+    ratio = peak / dry["peak_bytes"]
+    rec = {"phase": "dryrun", "part": "b", "cell": dry["cell"], "examples": n,
+           "checks": checks, "flops": stats["flops"], "dry_flops": dry["flops"],
+           "kernels": stats["kernels"], "dry_kernels": dry["kernels"], "launches": launches,
+           "collectives": stats["collectives"]["total"],
+           "dry_collectives": dry["collectives"]["total"],
+           "max_memory_allocated": peak, "allocated_before": real["allocated_before"],
+           "dry_peak_bytes": dry["peak_bytes"], "dry_memory": dry["memory"],
+           "counted_temp_bytes": mem["temp_bytes"], "memory_ratio": ratio,
+           "memory_ratio_bound": list(DRYRUN_MEM_RATIO), "nvidia_smi": smi,
+           "parent_reserved_bytes": torch.cuda.memory_reserved(),
+           "dry_runs_s": t_dry, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    print(f"dryrun memory: max_memory_allocated / peak_bytes = {ratio:.4f} on {smi}", flush=True)
+    bad = [k for k, ok in {**same, **checks}.items() if not ok]
+    if bad:
+        raise AssertionError(f"the dry run disagrees: {bad}")
+    if not DRYRUN_MEM_RATIO[0] <= ratio <= DRYRUN_MEM_RATIO[1]:
+        raise AssertionError(f"memory ratio {ratio} outside {DRYRUN_MEM_RATIO}")
+    return rec
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_device()
     phase_build()
+    phase_dryrun()
     kernels = phase_kernels()
     params, ladder_variants, train_launches = phase_ladder()
     phase_train_vs_cpu(params)

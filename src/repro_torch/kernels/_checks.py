@@ -2,11 +2,17 @@
 
 A wrapper refuses what its kernel does not take, and picks its path from
 the device its tensors lie on: the CPU runs the plain version, the current
-CUDA device runs the kernel, anything else raises.
+CUDA device runs the kernel, anything else raises. Fake tensors
+(`torch._subclasses.fake_tensor`, the dry run's: shapes and dtypes, no
+storage) on either device take the shape-only path instead (`shape_only`):
+the wrapper returns an output of the kernel's shape and dtype, launches
+nothing and counts no launch. The path follows from the tensors' type,
+never from a failure.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 
 def check_tensor(t: torch.Tensor, name: str, ndim: int, dtype: torch.dtype, *,
@@ -32,15 +38,22 @@ def check_rows(t: torch.Tensor, name: str) -> None:
     if t.stride(-1) != 1 and t.shape[-1] > 1:
         raise ValueError(f"{name} must have a contiguous last dimension, got strides {t.stride()}")
     size = t.element_size()
-    if t.data_ptr() % 16 or any(s * size % 16 for s, n in zip(t.stride()[:-1], t.shape[:-1])
-                                if n > 1):
+    misaligned = not is_fake(t) and t.data_ptr() % 16  # a fake tensor has no address
+    if misaligned or any(s * size % 16 for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1):
         raise ValueError(f"{name} must start on 16 bytes and step by multiples of 16 bytes, "
                          f"got strides {t.stride()} of {size}-byte elements")
 
 
+def shape_only(*tensors) -> bool:
+    """Whether a call takes the shape-only path: one of `tensors` (None
+    entries skipped) is a fake tensor."""
+    return any(t is not None and is_fake(t) for t in tensors)
+
+
 def dispatch_device(op: str, **tensors) -> torch.device:
     """The one device of `tensors` (None entries are skipped): cpu, or the
-    current CUDA device (a kernel's library launches there)."""
+    current CUDA device (a kernel's library launches there); fake tensors
+    on any CUDA device, where nothing launches."""
     devices = {t.device for t in tensors.values() if t is not None}
     if len(devices) != 1:
         raise ValueError(f"{', '.join(tensors)} must share one device, got {devices}")
@@ -49,6 +62,8 @@ def dispatch_device(op: str, **tensors) -> torch.device:
         return dev
     if dev.type != "cuda":
         raise ValueError(f"{op} runs on cpu or cuda, not {dev}")
+    if shape_only(*tensors.values()):
+        return dev
     if dev.index != torch.cuda.current_device():
         raise ValueError(
             f"tensors are on {dev} but the current device is cuda:{torch.cuda.current_device()}")

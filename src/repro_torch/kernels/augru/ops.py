@@ -5,7 +5,10 @@ goes to the Hopper kernel, or the call raises. Unlike `repro`'s wrapper,
 which falls back to the ref unless B divides by 128, the kernel takes any
 B. It refuses a `g` above 136: the kernel keeps `wh` in registers, each
 lane a quarter of a unit's three columns, and has template instances up
-to there.
+to there. A fake tensor takes the shape-only path (`_checks.shape_only`):
+an empty [B, g] output, no launch counted. A kernel launch and a
+shape-only call each hand the kernel's work to an active counter
+(`kernels/work.record`).
 
 The recurrence is differentiable through `torch.autograd.Function`: the
 forward is the kernel (or the plain version), which returns only the
@@ -20,9 +23,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._checks import check_tensor, dispatch_device
+from repro_torch.kernels._checks import check_tensor, dispatch_device, shape_only
 from repro_torch.kernels.augru.augru import MAX_G, augru
 from repro_torch.kernels.augru.ref import augru_ref
+from repro_torch.kernels.work import augru_work, record
 
 # Kernel launches made through `augru_op`, in this process. Callers that
 # count (the serve launcher, chip_smoke.py) reset it to 0 themselves.
@@ -34,10 +38,15 @@ class _AUGRU(torch.autograd.Function):
     def forward(ctx, zx, wh, h0, att, mask):
         global launches
         ctx.save_for_backward(zx, wh, h0, att, mask)
+        work = lambda: augru_work(zx.shape[0], zx.shape[1], wh.shape[0])  # noqa: E731
+        if shape_only(zx, wh, h0, att, mask):
+            record("augru", work)
+            return zx.new_empty(h0.shape)
         if zx.device.type == "cpu":
             return augru_ref(zx, wh, h0, att, mask)
         out = augru(zx, wh, h0, att, mask)
         launches += 1
+        record("augru", work)
         return out
 
     @staticmethod

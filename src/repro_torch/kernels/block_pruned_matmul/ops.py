@@ -5,7 +5,11 @@ A CPU tensor goes to the plain version (`ref.block_pruned_matmul_ref`); a
 CUDA tensor goes to the Hopper kernel, or the call raises. Unlike `repro`'s
 `pruned_linear`, which falls back to the ref unless M, K and N divide by
 128, the kernel takes any M, K, N >= 1. The mask's tile is 128 x 128
-(`ref.BLOCK`), compiled into the kernel.
+(`ref.BLOCK`), compiled into the kernel. A fake tensor takes the
+shape-only path (`_checks.shape_only`): an empty [M, N] output, no launch
+counted. A kernel launch and a shape-only call each hand the kernel's work
+(every tile kept: `kernels/work.block_pruned_matmul_work`'s dense bound) to
+an active counter (`kernels/work.record`).
 
 The product is differentiable through `torch.autograd.Function`. The
 backward is plain PyTorch on either device (the TPU kernel has no backward;
@@ -25,10 +29,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._checks import check_tensor, dispatch_device
+from repro_torch.kernels._checks import check_tensor, dispatch_device, shape_only
 from repro_torch.kernels.block_pruned_matmul.block_pruned_matmul import block_pruned_matmul
 from repro_torch.kernels.block_pruned_matmul.ref import (
     BLOCK, block_pruned_matmul_ref, expand_block_mask)
+from repro_torch.kernels.work import block_pruned_matmul_work, record
 
 # Kernel launches made through `block_pruned_matmul_op`, in this process.
 # Callers that count (the serve launcher, chip_smoke.py) reset it to 0 themselves.
@@ -37,10 +42,15 @@ launches = 0
 
 def _product(x, w, block_mask):
     global launches
+    work = lambda: block_pruned_matmul_work(x, w, block_mask, dense=True)  # noqa: E731
+    if shape_only(x, w, block_mask):
+        record("block_pruned_matmul", work)
+        return x.new_empty((x.shape[0], w.shape[1]))
     if x.device.type == "cpu":
         return block_pruned_matmul_ref(x, w, block_mask)
     out = block_pruned_matmul(x, w, block_mask)
     launches += 1
+    record("block_pruned_matmul", work)
     return out
 
 

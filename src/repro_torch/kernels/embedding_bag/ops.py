@@ -2,7 +2,10 @@
 
 A CPU tensor goes to the plain version (`ref.embedding_bag_ref`); a CUDA
 tensor goes to the Hopper kernel, or the call raises. There is no fallback
-from the kernel to the plain version.
+from the kernel to the plain version. A fake tensor takes the shape-only
+path (`_checks.shape_only`): an empty [B, d] output, no launch counted.
+A kernel launch and a shape-only call each hand the kernel's work to an
+active counter (`kernels/work.record`).
 
 The lookup is differentiable through `torch.autograd.Function`: the
 forward is the kernel (or the plain version), the backward plain PyTorch
@@ -22,9 +25,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels._checks import check_tensor, dispatch_device
+from repro_torch.kernels._checks import check_tensor, dispatch_device, shape_only
 from repro_torch.kernels.embedding_bag.embedding_bag import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.work import embedding_bag_work, record
 
 # Kernel launches made through `embedding_bag_op`, in this process. Callers
 # that count (the serve launcher, chip_smoke.py) reset it to 0 themselves.
@@ -33,10 +37,15 @@ launches = 0
 
 def _bag(table, idx, weights, row0, id_limit):
     global launches
+    work = lambda: embedding_bag_work(table, idx, weights, row0, dense=True)  # noqa: E731
+    if shape_only(table, idx, weights):
+        record("embedding_bag", work)
+        return table.new_empty((idx.shape[0], table.shape[1]))
     if table.device.type == "cpu":
         return embedding_bag_ref(table, idx, weights, row0, id_limit)
     out = embedding_bag(table, idx, weights, row0=row0, id_limit=id_limit)
     launches += 1
+    record("embedding_bag", work)
     return out
 
 

@@ -4,7 +4,9 @@ a launch count.
 A CPU tensor goes to the plain version (`ref.fm_interaction_ref`); a CUDA
 tensor goes to the Hopper kernel, or the call raises. Unlike `repro`'s
 wrapper, which falls back to the ref unless B divides by 256, the kernel
-takes any B.
+takes any B. A fake tensor takes the shape-only path (`_checks.shape_only`):
+an empty [B] output, no launch counted. A kernel launch and a shape-only
+call each hand the kernel's work to an active counter (`kernels/work.record`).
 
 The interaction is differentiable through `torch.autograd.Function`: the
 forward is the kernel (or the plain version), the backward the same plain
@@ -17,9 +19,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._checks import check_tensor, dispatch_device
+from repro_torch.kernels._checks import check_tensor, dispatch_device, shape_only
 from repro_torch.kernels.fm_interaction.fm_interaction import fm_interaction
 from repro_torch.kernels.fm_interaction.ref import fm_interaction_ref
+from repro_torch.kernels.work import fm_interaction_work, record
 
 # Kernel launches made through `fm_interaction_op`, in this process. Callers
 # that count (the serve launcher, chip_smoke.py) reset it to 0 themselves.
@@ -37,10 +40,15 @@ class _FMInteraction(torch.autograd.Function):
     def forward(ctx, e):
         global launches
         ctx.save_for_backward(e)
+        work = lambda: fm_interaction_work(*e.shape)  # noqa: E731
+        if shape_only(e):
+            record("fm_interaction", work)
+            return e.new_empty(e.shape[:1])
         if e.device.type == "cpu":
             return fm_interaction_ref(e)
         out = fm_interaction(e)
         launches += 1
+        record("fm_interaction", work)
         return out
 
     @staticmethod

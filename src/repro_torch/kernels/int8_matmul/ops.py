@@ -12,6 +12,10 @@ kernel takes any M, K, N >= 1.
 No model path runs this: the int8 rep of `core/lightweight.py` is
 weight-only dequantization, as in `repro`, and W8A8 gives another result.
 The kernel has no backward: on CUDA tensors under grad the wrapper raises.
+A fake tensor takes the shape-only path (`_checks.shape_only`): an empty
+[M, N] output, no launch counted, and the same refusal under grad. A
+kernel launch and a shape-only call each hand the kernel's work to an
+active counter (`kernels/work.record`).
 """
 from __future__ import annotations
 
@@ -19,9 +23,10 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels._checks import check_no_grad, check_tensor, dispatch_device
+from repro_torch.kernels._checks import check_no_grad, check_tensor, dispatch_device, shape_only
 from repro_torch.kernels.int8_matmul.int8_matmul import int8_matmul
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref, quantize_activations
+from repro_torch.kernels.work import int8_matmul_work, record
 
 # Kernel launches made through `int8_matmul_op`, in this process. Callers
 # that count (the serve launcher, chip_smoke.py) reset it to 0 themselves.
@@ -45,11 +50,17 @@ def int8_matmul_op(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
         raise ValueError(f"a_scale {tuple(a_scale.shape)} must be ({M},) and b_scale "
                          f"{tuple(b_scale.shape)} ({N},)")
     dev = dispatch_device("int8_matmul_op", a_q=a_q, b_q=b_q, a_scale=a_scale, b_scale=b_scale)
+    work = lambda: int8_matmul_work(M, K, N)  # noqa: E731
+    if shape_only(a_q, b_q, a_scale, b_scale):
+        check_no_grad("int8_matmul_op", a_scale=a_scale, b_scale=b_scale)
+        record("int8_matmul", work)
+        return a_scale.new_empty((M, N))
     if dev.type == "cpu":
         return int8_matmul_ref(a_q, b_q, a_scale, b_scale)
     check_no_grad("int8_matmul_op", a_scale=a_scale, b_scale=b_scale)
     out = int8_matmul(a_q, b_q, a_scale, b_scale)
     launches += 1
+    record("int8_matmul", work)
     return out
 
 

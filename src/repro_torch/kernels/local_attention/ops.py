@@ -8,7 +8,12 @@ q, k and v as views with any strides whose last dimension is contiguous
 [B, L, H, dh] output, so nothing is copied on either side. A CPU tensor
 goes to the plain version (`ref.local_attention_ref`); a CUDA tensor goes
 to the Hopper kernel, or the call raises. Unlike `repro`'s wrapper, which
-falls back to the ref unless L divides by 128, the kernel takes any L.
+falls back to the ref unless L divides by 128, the kernel takes any L. A
+fake tensor takes the shape-only path (`_checks.shape_only`): an empty
+output laid out as the kernel's, no launch counted. A kernel launch and a
+shape-only call each hand the kernel's work (every key valid:
+`kernels/work.local_attention_work`'s dense bound) to an active counter
+(`kernels/work.record`).
 
 The attention is differentiable through `torch.autograd.Function`: the
 forward is the kernel (or the plain version), the backward plain PyTorch
@@ -22,9 +27,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._checks import check_tensor, dispatch_device
+from repro_torch.kernels._checks import check_tensor, dispatch_device, shape_only
 from repro_torch.kernels.local_attention.local_attention import HEAD_DIMS, local_attention
 from repro_torch.kernels.local_attention.ref import local_attention_ref
+from repro_torch.kernels.work import local_attention_work, record
 
 # Kernel launches made through `windowed_attention_op`, in this process.
 # Callers that count (the serve launcher, chip_smoke.py) reset it to 0 themselves.
@@ -35,10 +41,16 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 def _attend(q, k, v, kv_len, window, causal):
     global launches
+    work = lambda: local_attention_work(q, window, causal, kv_len, dense=True)  # noqa: E731
+    if shape_only(q, k, v, kv_len):
+        record("local_attention", work)
+        B, H, L, dh = q.shape
+        return q.new_empty((B, L, H, dh)).transpose(1, 2)  # the kernel's layout
     if q.device.type == "cpu":
         return local_attention_ref(q, k, v, window=window, causal=causal, kv_len=kv_len)
     out = local_attention(q, k, v, window, causal, kv_len)
     launches += 1
+    record("local_attention", work)
     return out
 
 

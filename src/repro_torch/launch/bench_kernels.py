@@ -8,9 +8,10 @@ tensors drawn from `--seed`, holds the result against the kernel's plain
 PyTorch version on the same inputs, and times three things the same way
 (`time_ms`): the kernel, the plain version, and one PyTorch library call
 that computes the same function where there is one (the port never calls
-it). Beside them stands the card's bound for the same work (`bound`): the
-larger of the bytes the function must move over the H100's memory rate
-and its operations over the peak rate for their type. The rows:
+it). Beside them stands the card's bound for the same work
+(`kernels/work`, whose `*_work` functions the dry run's counter reads
+too): the larger of the bytes the function must move over the H100's
+memory rate and its operations over the peak rate for their type. The rows:
 
 - `int8_matmul` 512³, through `quantized_linear` (activations and weights
   quantized per row, as `repro`'s benchmark does);
@@ -56,15 +57,11 @@ from repro_torch.kernels.int8_matmul.ref import (
     int8_matmul_ref, int32_product, pallas_epilogue, quantize_activations)
 from repro_torch.kernels.local_attention import ops as la_ops
 from repro_torch.kernels.local_attention.ref import attention_mask, local_attention_ref
+from repro_torch.kernels.work import (  # noqa: F401 (INT8_OPS: the rows' peaks, with bound)
+    INT8_OPS, augru_work, block_pruned_matmul_work, bound, embedding_bag_work,
+    fm_interaction_work, int8_matmul_work, local_attention_work)
 from repro_torch.launch.serve import disable_tf32
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s; f32
-# FLOP/s outside the tensor cores; int8 tensor-core OP/s; f32-accurate
-# products on the tensor cores as 3xTF32, a third of the 495 TFLOP/s of TF32.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-INT8_OPS = 1979e12
-F32_3XTF32_FLOPS = 495e12 / 3
 KERNEL_ITERS = 50
 SLEEP_CYCLES = 1_000_000  # ~0.5 ms at H100 clocks: longer than the host takes to enqueue a call
 L2_FLUSH_BYTES = 64 * 2**20  # > the H100's 50 MB L2
@@ -103,14 +100,6 @@ def time_ms(fn: Callable[[], object], flush: Optional[torch.Tensor],
     return float(np.median([a.elapsed_time(b) for a, b in events]))
 
 
-def bound(nbytes: float, flops: float, peak: float = F32_FLOPS) -> Dict:
-    """The least time the card could take: the larger of `nbytes` at the
-    HBM rate and `flops` at `peak`, and which of the two it is."""
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    return {"bytes": nbytes, "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-
-
 def l2_flush_buffer(device) -> torch.Tensor:
     """The buffer `time_ms` writes before each call to evict L2."""
     return torch.empty(L2_FLUSH_BYTES // 4, device=device)
@@ -124,12 +113,6 @@ def launch_floor_ms(device, flush: Optional[torch.Tensor], iters: int = KERNEL_I
         raise ValueError(f"the launch floor is a device time on a CUDA card, not {device}")
     one = torch.zeros(1, device=device)
     return time_ms(lambda: one.fill_(1.0), flush, iters)
-
-
-def fm_interaction_work(B: int, F: int, k: int) -> Dict:
-    """e read once and the output written once; per value s += v and
-    q += v·v (3), per factor S², − and Σ (3), per example ½ (1)."""
-    return bound(4 * B * F * k + 4 * B, B * (3 * F * k + 3 * k + 1))
 
 
 def fm_interaction_case(e: torch.Tensor, *, flush: Optional[torch.Tensor] = None,
@@ -157,40 +140,6 @@ def fm_interaction_case(e: torch.Tensor, *, flush: Optional[torch.Tensor] = None
             "library_ms": None,
             "library": "none: no single PyTorch call computes the FM sum-square interaction",
             **fm_interaction_work(B, F, k)}
-
-
-def int8_matmul_work(M: int, K: int, N: int) -> Dict:
-    """a_q and b_q read once (a byte an element), both scales, the f32
-    output written once; 2·M·N·K int8 operations at the int8 rate."""
-    return bound(M * K + K * N + 4 * M + 4 * N + 4 * M * N, 2 * M * N * K, INT8_OPS)
-
-
-def local_attention_work(q: torch.Tensor, window: int, causal: bool = False,
-                         kv_len: Optional[torch.Tensor] = None) -> Dict:
-    """The least work of one call, counted from this call's window,
-    causality and key lengths. q: [B, H, L, dh]; kv_len [B] or None.
-
-    Bytes: the output written once, `kv_len` read once, and of q, k and v
-    only the rows the function needs: q's rows that have a valid key; k's
-    keys that some query attends; v's likewise, but all L of a request's
-    rows where one of its queries has no valid key, since that row is the
-    mean of v over all L (as `repro`'s −1e30 mask makes it). Operations:
-    per valid (query, key) pair 2·dh for q·k, 2·dh for p·v and 3 for the
-    softmax (max, exp, sum); L·dh additions for each row with no valid
-    key; one division per output element."""
-    B, H, L, dh = q.shape
-    mask = attention_mask(L, window, causal=causal, kv_len=kv_len, device=q.device)
-    reps = B if mask.ndim == 2 else 1  # without kv_len one [L, L] mask serves every request
-    mask = mask.reshape(-1, L, L)
-    live_rows, live_keys = mask.any(dim=2), mask.any(dim=1)  # [b, L] each
-    v_rows = torch.where(live_rows.all(dim=1), live_keys.sum(dim=1), L)
-    rows_read = int(live_rows.sum()) + int(live_keys.sum()) + int(v_rows.sum())
-    dead_rows = int((~live_rows).sum())
-    nbytes = (reps * H * dh * q.element_size() * rows_read + q.numel() * q.element_size()
-              + (kv_len.numel() * 4 if kv_len is not None else 0))
-    pairs = reps * H * int(mask.sum())
-    flops = pairs * (4 * dh + 3) + reps * H * dead_rows * L * dh + q.numel()
-    return {**bound(nbytes, flops), "pairs": pairs, "rows_without_keys": reps * H * dead_rows}
 
 
 def local_attention_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
@@ -305,23 +254,6 @@ def int8_case(x: torch.Tensor, w_rep: Dict[str, torch.Tensor], *,
     }
 
 
-def block_pruned_matmul_work(x: torch.Tensor, w: torch.Tensor, block_mask: torch.Tensor) -> Dict:
-    """The least work of x @ (w ⊙ expand(block_mask)): the surviving weights
-    once, the columns of x that meet a surviving tile once, the tile mask,
-    the output once; 2 operations a surviving weight and row, at the rate
-    of f32-accurate products on the tensor cores (3xTF32), with the time at
-    the CUDA cores' f32 rate beside it."""
-    (M, K), N = x.shape, w.shape[1]
-    mask = expand_block_mask(block_mask, (K, N))
-    surviving = int(mask.sum())
-    live_k = int((mask.sum(dim=1) > 0).sum())
-    nbytes = 4 * (M * live_k + surviving + block_mask.numel() + M * N)
-    flops = 2 * M * surviving
-    return {**bound(nbytes, flops, F32_3XTF32_FLOPS),
-            "bound_peak": "3xTF32 on the tensor cores, 495/3 TFLOP/s",
-            "bound_ms_f32_cores": bound(nbytes, flops)["bound_ms"]}
-
-
 def block_pruned_matmul_case(x: torch.Tensor, w: torch.Tensor, block_mask: torch.Tensor, *,
                              flush: Optional[torch.Tensor] = None, iters: int = KERNEL_ITERS,
                              alt_plans: Optional[Dict[str, "bpm_kernel.Plan"]] = None) -> Dict:
@@ -365,17 +297,6 @@ def block_pruned_matmul_case(x: torch.Tensor, w: torch.Tensor, block_mask: torch
                          for name, plan in (alt_plans or {}).items()},
         **block_pruned_matmul_work(x, w, block_mask),
     }
-
-
-def embedding_bag_work(table: torch.Tensor, idx: torch.Tensor,
-                       weights: Optional[torch.Tensor]) -> Dict:
-    """Each distinct row read once, the ids and weights once, the output
-    written once; d multiply-adds an id."""
-    (B, nnz), d = idx.shape, table.shape[1]
-    uniq = int(torch.unique(idx).numel())
-    nbytes = uniq * d * 4 + idx.numel() * 4 + (weights.numel() * 4 if weights is not None else 0) \
-        + B * d * 4
-    return {**bound(nbytes, 2 * B * nnz * d), "distinct_rows": uniq}
 
 
 def embedding_bag_case(table: torch.Tensor, idx: torch.Tensor, weights: Optional[torch.Tensor],
@@ -444,14 +365,11 @@ def embedding_bag_range_case(table: torch.Tensor, idx: torch.Tensor, ways: int, 
            "max_abs_err": float((out - ref).abs().max())}
     if flush is None:
         return rec
-    B, nnz = idx.shape
-    uniq = int(torch.unique(local[mine]).numel())
-    work = bound(uniq * d * 4 + idx.numel() * 4 + B * d * 4, 2 * int(mine.sum()) * d)
     return {**rec, "ms": time_ms(call, flush, iters),
             "plain_ms": time_ms(lambda: embedding_bag_ref(block, idx, None, row0, V), flush,
                                 iters),
             "whole_table_ms": time_ms(lambda: eb_ops.embedding_bag_op(table, idx), flush, iters),
-            **work, "distinct_rows": uniq}
+            **embedding_bag_work(block, idx, None, row0)}
 
 
 def _check(out: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float) -> Dict:
@@ -520,13 +438,10 @@ def _augru_row(gen, dev, flush, iters):
     mask = torch.ones((B, T), dtype=torch.bool, device=dev)
     args = (zx, wh, h0, att, mask)
     check = _check(augru_ops.augru_op(*args), augru_ref(*args), 0.0, 1e-5)
-    # per row and step: h @ wh (2·g·3g) and 16 elementwise operations a unit
-    nbytes = 4 * B * T * 3 * g + 4 * g * 3 * g + 4 * B * g + 4 * B * T + B * T + 4 * B * g
-    work = bound(nbytes, B * T * (6 * g * g + 16 * g))
     return _row("augru", [B, T, g], check, lambda: augru_ops.augru_op(*args),
                 lambda: augru_ref(*args), None,
-                "none: cuDNN's GRU has no attentional update gate", work, flush, iters,
-                plain_iters=5)
+                "none: cuDNN's GRU has no attentional update gate", augru_work(B, T, g), flush,
+                iters, plain_iters=5)
 
 
 ROWS = (_int8_row, _block_pruned_row, _local_attention_row, _embedding_bag_row, _fm_row,

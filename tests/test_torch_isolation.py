@@ -60,6 +60,8 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
     assert {"repro_torch.distributed.sharding", "repro_torch.distributed.grad_compression",
             "repro_torch.launch.mesh"} <= walked
     assert {"repro_torch.distributed.collectives", "repro_torch.launch.cells"} <= walked
+    assert {"repro_torch.launch.dryrun", "repro_torch.launch.hlo_stats",
+            "repro_torch.launch.analysis", "repro_torch.kernels.work"} <= walked
 
 
 _FORBIDDEN = re.compile(
