@@ -16,9 +16,9 @@ loss, the train step's sums), and so does an LM cell's (the transformer
 split by `rules`: FSDP weights and context-parallel attention in the
 train step and prefill, tensor parallelism and split-K attention in
 decode; `models/transformer`'s docstring), except under
-`train_layout="tp"` or `int8_serve`, which refuse more than one rank. A
-GNN cell's `fn` runs on a mesh of one rank and refuses more: its forward
-is not split across ranks yet. The long-context decode layout (batch 1,
+`train_layout="tp"` or `int8_serve`, which refuse more than one rank, and
+so does a GNN cell's (NequIP split by nodes and edges over the node dims:
+`models/gnn/nequip`'s docstring). The long-context decode layout (batch 1,
 the cache split over "long_kv_seq") is the long_500k shape's, or any
 decode of 100,000 positions or more, as in `repro`; a `shape=` named
 "long_500k" takes it at any size.
@@ -60,13 +60,6 @@ class Cell(NamedTuple):
 
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
-
-
-def _one_rank(mesh, what: str) -> None:
-    """Refuse a mesh of more than one rank for a forward not split yet."""
-    if mesh.size() > 1:
-        raise ValueError(f"{what} runs on a mesh of one rank; this one has {mesh.size()}: "
-                         "the GNN's forward is not split across ranks yet")
 
 
 # ---------------------------------------------------------------------------
@@ -353,10 +346,10 @@ def _gnn_cell(cfg: GNNConfig, shape: GNNShape, mesh, rules, optimizer: str) -> C
         g_specs["label_mask"] = pspec(("nodes",), rules)
         loss, metric_names = nequip.node_class_loss, ("nll",)
 
-    def loss_fn(p, b):
-        _one_rank(mesh, f"{cfg.name}'s loss")
-        return loss(p, b, cfg)
-
+    # each rank's backward forms its nodes' part of every gradient: the
+    # step sums the parts over the node dims (under full_mesh_graph
+    # "model" too; under plain GNN_RULES "model" holds copies, not parts)
+    step_rules = {**rules, "batch": rules["nodes"]}
     opt = opt_lib.get_optimizer(optimizer)
     opt_state = opt_lib.abstract_state(optimizer, params)
     o_specs = opt_lib.state_pspecs(optimizer, p_specs, params)
@@ -364,7 +357,8 @@ def _gnn_cell(cfg: GNNConfig, shape: GNNShape, mesh, rules, optimizer: str) -> C
     metric_specs.update({"grad_norm": P(), "loss": P()})
     return Cell(
         name=f"{cfg.name}:{shape.name}",
-        fn=make_train_step(loss_fn, opt),
+        fn=make_train_step(lambda p, b: loss(p, b, cfg, rules), opt, rules=step_rules,
+                           param_specs=p_specs),
         args=(params, opt_state, graph),
         in_specs=(p_specs, o_specs, g_specs),
         out_specs=(p_specs, o_specs, metric_specs),

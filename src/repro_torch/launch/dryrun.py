@@ -30,8 +30,8 @@ compile times) and `kernels`, `device`, `rank`, `peak_bytes` (arguments +
 temporaries), `fits` against `memory_limit` (the card's memory where one is
 present, else the H100 80GB HBM3's data-sheet 80 GB), `roofline`, and
 for an LM cell `model_flops` and `mfu_ratio`. A cell that refuses its mesh
-(NequIP's across ranks; an LM layout such as `{"train_layout": "tp"}`
-under `--overrides`, which runs on one rank only) writes `.err.json`
+(an LM layout such as `{"train_layout": "tp"}` under `--overrides`, which
+runs on one rank only) writes `.err.json`
 with the refusal and exits 1, as `repro`'s sweep records a cell that does
 not compile. `--sweep` runs each cell in a subprocess of its own, so that
 one failure cannot stop the sweep; `--report` prints the records as a

@@ -24,11 +24,34 @@ grouping `segments` computes once a forward. The species lookup runs the
 `embedding_bag` kernel at one id a bag (exact), whose table gradient is
 that same reduce. Divisions by a constant multiply by its f32 reciprocal,
 as XLA rewrites them, so `radial_basis` is `repro`'s bits.
+
+Across ranks (`rules` of a `DeviceMesh` whose "nodes" rule splits the
+nodes over more than one rank), each rank holds its block of the nodes
+(positions, species or features, labels, masks, graph ids) under
+`rules["nodes"]` and its block of the edges under `rules["edges"]`, the
+same mesh dims, where `repro`'s GSPMD pins them (`constrain`). Edge ids
+stay global node ids, and `segments` groups the rank's edges over all N
+nodes. The two node-indexed operations become collectives with their
+transposes as backward (`_Split`): `gather` all-gathers the node blocks
+(`collectives.gather_spec`) and then takes the rank's edges, its
+backward the fixed-order reduce into all N rows and a reduce-scatter
+back to the block; `scatter_sum` reduces the rank's edges into all N
+rows and reduce-scatters them to the block, its backward an all-gather
+and a take. The positions are gathered once a forward; under
+`hoist_gathers` each layer gathers once per l, else once per coupling
+path, as `repro`'s. The losses are global means over the whole graph:
+sums over the node dims (`collectives.psum`), which every rank then
+holds alike. Mesh dims that the nodes' rule leaves out ("model" under
+plain `GNN_RULES`) hold copies of the same blocks, so nothing is summed
+over them. Each rank's backward forms its nodes' part of every
+parameter's gradient; the train step sums the parts over the node dims
+(`launch/cells._gnn_cell`). Without rules, or where the node dims have
+one rank, the path is the one-rank one, to the bit.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +59,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GNNConfig
+from repro_torch.distributed.collectives import gather_spec, psum, reduce_scatter
+from repro_torch.distributed.sharding import P, axes_index, entry_axes, mesh_groups
 from repro_torch.kernels.embedding_bag.ops import Segments, embedding_bag_op, segment_sum, segments
 from repro_torch.models.common import ParamDef
 from repro_torch.models.gnn.irreps import DIM, N_PATHS, path_list, spherical_harmonics
@@ -104,16 +129,62 @@ class _ScatterSum(torch.autograd.Function):
         return dy.index_select(0, ctx.seg.ids), None
 
 
-def gather(x: torch.Tensor, seg: Segments) -> torch.Tensor:
+class _Split(NamedTuple):
+    """How the nodes lie across ranks: `mesh` and the mesh dims of the
+    nodes' rule (major to minor), `groups` the process groups of those
+    dims that have more than one rank, `ways` the number of node blocks."""
+    mesh: object
+    axes: Tuple[str, ...]
+    groups: Tuple
+    ways: int
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The node blocks of every rank along dim 0, in block order: a
+        tiled all-gather, its backward the reduce-scatter."""
+        return gather_spec(x, P(self.axes), self.mesh)
+
+    def block(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the node dims of x [N, ...], of which this rank
+        keeps its node block: `whole`'s transpose (the major dim first, so
+        that it ends outermost)."""
+        for g in self.groups:
+            x = reduce_scatter(x, 0, g)
+        return x
+
+
+def _split(rules) -> Optional[_Split]:
+    """The nodes' split under `rules`, or None where the node dims have one
+    rank (no rules, no mesh, or copies only): the one-rank path."""
+    mesh = None if rules is None else rules.get("__mesh__")
+    if mesh is None:
+        return None
+    axes = entry_axes(rules.get("nodes"))
+    groups = mesh_groups(mesh, axes)
+    if not groups:
+        return None
+    if entry_axes(rules.get("edges")) != axes:
+        raise ValueError(f"the edges' rule {rules.get('edges')!r} must split them over the "
+                         f"nodes' mesh dims {rules.get('nodes')!r}: a rank's messages are "
+                         "summed over the node dims")
+    return _Split(mesh, axes, groups, axes_index(mesh, axes)[1])
+
+
+def gather(x: torch.Tensor, seg: Segments, split: Optional[_Split] = None) -> torch.Tensor:
     """`jnp.take(x, ids, axis=0)`: x [n, ...] -> [M, ...]; its gradient sums
-    each row's terms in the order of M (`segment_sum`)."""
-    return _Gather.apply(x, seg)
+    each row's terms in the order of M (`segment_sum`). Under `split`, x is
+    this rank's node block and the ids are global: the blocks are
+    all-gathered first, and the gradient reduce-scattered back."""
+    return _Gather.apply(x if split is None else split.whole(x), seg)
 
 
-def scatter_sum(rows: torch.Tensor, seg: Segments) -> torch.Tensor:
+def scatter_sum(rows: torch.Tensor, seg: Segments, split: Optional[_Split] = None
+                ) -> torch.Tensor:
     """`jax.ops.segment_sum(rows, ids, n)`: rows [M, ...] -> [n, ...], each
-    row's terms added in the order of M; its gradient is a gather."""
-    return _ScatterSum.apply(rows, seg)
+    row's terms added in the order of M; its gradient is a gather. Under
+    `split`, the rank's rows are summed into all n rows, and the ranks'
+    sums reduce-scattered to this rank's node block."""
+    out = _ScatterSum.apply(rows, seg)
+    return out if split is None else split.block(out)
 
 
 # ---------------------------------------------------------------------------
@@ -135,9 +206,12 @@ def radial_basis(dist: torch.Tensor, cfg: GNNConfig) -> torch.Tensor:
     return rbf * fc[:, None]
 
 
-def interaction_layer(feats, lp, src: Segments, dst: Segments, sh, rbf, cfg: GNNConfig):
+def interaction_layer(feats, lp, src: Segments, dst: Segments, sh, rbf, cfg: GNNConfig,
+                      split: Optional[_Split] = None):
     """One NequIP interaction. feats: {l: [N,C,2l+1]}; lp: this layer's
-    params; `src` / `dst`: the edges grouped by source and by destination."""
+    params; `src` / `dst`: the edges grouped by source and by destination
+    (over all nodes); `split`: the nodes across ranks (feats the rank's
+    block), or None."""
     C = cfg.d_hidden
     # radial MLP -> per-edge path weights [E, n_paths, C]
     h = F.silu(rbf @ lp["rad_w1"] + lp["rad_b1"])
@@ -148,7 +222,7 @@ def interaction_layer(feats, lp, src: Segments, dst: Segments, sh, rbf, cfg: GNN
     if cfg.hoist_gathers:
         # one [E,C,d] gather per l (3 total) instead of one per coupling path (15)
         for l in range(cfg.l_max + 1):
-            gathered[l] = gather(feats[l], src)
+            gathered[l] = gather(feats[l], src, split)
 
     msgs = {l: 0.0 for l in range(cfg.l_max + 1)}
     for p_idx, (lf, ls, lo, fn) in enumerate(path_list()):
@@ -156,14 +230,14 @@ def interaction_layer(feats, lp, src: Segments, dst: Segments, sh, rbf, cfg: GNN
             continue
         src_feat = gathered.get(lf)
         if src_feat is None:
-            src_feat = gather(feats[lf], src)  # [E,C,2lf+1]
+            src_feat = gather(feats[lf], src, split)  # [E,C,2lf+1]
         y = sh[ls][:, None, :]  # [E,1,2ls+1]
         coupled = fn(src_feat, y)  # [E,C,2lo+1]
         msgs[lo] = msgs[lo] + coupled * w[:, p_idx, :, None]
 
     new = {}
     for l in range(cfg.l_max + 1):
-        agg = scatter_sum(msgs[l], dst)
+        agg = scatter_sum(msgs[l], dst, split)
         mixed = torch.einsum("ncd,ce->ned", feats[l], lp[f"self_{l}"])
         new[l] = mixed + agg
 
@@ -184,16 +258,21 @@ def interaction_layer(feats, lp, src: Segments, dst: Segments, sh, rbf, cfg: GNN
 # ---------------------------------------------------------------------------
 
 
-def forward(params, graph, cfg: GNNConfig) -> torch.Tensor:
+def forward(params, graph, cfg: GNNConfig, rules=None) -> torch.Tensor:
     """graph: {positions [N,3], edge_src [E], edge_dst [E],
     species [N] | features [N,d_feat], (edge_mask [E], node_mask [N])}.
-    Returns per-node output [N, n_out]."""
+    Returns per-node output [N, n_out]. Across the ranks of `rules` (see
+    the module's docstring) each is this rank's block and so is the
+    output."""
+    split = _split(rules)
     pos = graph["positions"]
     n_nodes = pos.shape[0]
-    src = segments(graph["edge_src"], n_nodes)
-    dst = segments(graph["edge_dst"], n_nodes)
+    n_all = n_nodes if split is None else n_nodes * split.ways
+    src = segments(graph["edge_src"], n_all)
+    dst = segments(graph["edge_dst"], n_all)
 
-    r = gather(pos, src) - gather(pos, dst)  # j -> i
+    pos_all = pos if split is None else split.whole(pos)
+    r = gather(pos_all, src) - gather(pos_all, dst)  # j -> i
     dist = torch.sqrt(torch.sum(torch.square(r + 1e-12), dim=-1))
     sh = spherical_harmonics(r)
     if "edge_mask" in graph:
@@ -211,7 +290,7 @@ def forward(params, graph, cfg: GNNConfig) -> torch.Tensor:
         feats[l] = torch.zeros((n_nodes, C, DIM[l]), dtype=s0.dtype, device=s0.device)
 
     def body(feats, lp):
-        return interaction_layer(feats, lp, src, dst, sh, rbf, cfg)
+        return interaction_layer(feats, lp, src, dst, sh, rbf, cfg, split)
 
     layers = params["layers"]
     for i in range(next(iter(layers.values())).shape[0]):
@@ -223,28 +302,43 @@ def forward(params, graph, cfg: GNNConfig) -> torch.Tensor:
     return h @ params["out_w2"] + params["out_b2"]
 
 
-def node_class_loss(params, batch, cfg: GNNConfig):
-    """Full-batch / sampled node classification (Cora, Reddit, products)."""
-    out = forward(params, batch, cfg)  # [N, n_classes]
+def node_class_loss(params, batch, cfg: GNNConfig, rules=None):
+    """Full-batch / sampled node classification (Cora, Reddit, products).
+    Across ranks: the mean over the whole graph's (labelled) nodes, each
+    rank's sums added over the node dims."""
+    split = _split(rules)
+    out = forward(params, batch, cfg, rules)  # [N, n_classes]
     labels = batch["labels"]
     mask = batch.get("label_mask")
     logp = F.log_softmax(out.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, labels.to(torch.int64)[:, None])[:, 0]
     if mask is not None:
         nll = torch.where(mask, nll, 0.0)
-        loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
+    if split is None:
+        loss = torch.mean(nll) if mask is None else \
+            torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
     else:
-        loss = torch.mean(nll)
+        count = float(nll.shape[0] * split.ways) if mask is None else \
+            torch.clamp(psum(torch.sum(mask.to(nll.dtype)), split.groups), min=1)
+        loss = psum(torch.sum(nll), split.groups) / count
     return loss, {"nll": loss}
 
 
-def energy_loss(params, batch, cfg: GNNConfig):
+def energy_loss(params, batch, cfg: GNNConfig, rules=None):
     """Batched molecular energy regression: per-node contributions summed
-    per graph (a fixed-order segment sum over graph ids)."""
-    out = forward(params, batch, cfg)[:, 0]  # [N]
+    per graph (a fixed-order segment sum over graph ids). Across ranks:
+    each rank's nodes give a partial sum of every graph, added over the
+    node dims; `energies`, this rank's block under `rules["batch"]`, are
+    gathered whole, and the mean runs over all graphs."""
+    split = _split(rules)
+    out = forward(params, batch, cfg, rules)[:, 0]  # [N]
     if "node_mask" in batch:
         out = torch.where(batch["node_mask"], out, 0.0)
-    n_graphs = batch["energies"].shape[0]
-    e = scatter_sum(out, segments(batch["graph_ids"], n_graphs))
-    loss = torch.mean(torch.square(e - batch["energies"]))
+    energies = batch["energies"]
+    if split is not None:
+        energies = gather_spec(energies, P(rules.get("batch")), split.mesh)
+    e = scatter_sum(out, segments(batch["graph_ids"], energies.shape[0]))
+    if split is not None:
+        e = psum(e, split.groups)
+    loss = torch.mean(torch.square(e - energies))
     return loss, {"mse": loss}

@@ -7,9 +7,11 @@ each on both production meshes as an abstract mesh (`repro`'s on
 `jax.sharding.AbstractMesh`): the name, `meta` and `donate` equal
 `repro`'s, every arg lies on the "meta" device (no storage) with
 `repro`'s shape and dtype, and the specs of every arg and output equal
-`repro`'s shardings' specs, leaf for leaf. A GNN cell's `fn`, an LM
-cell's under `train_layout="tp"` or `int8_serve`, and a train cell's under
-adam8bit refuse a mesh of two gloo ranks and name why.
+`repro`'s shardings' specs, leaf for leaf. An LM cell's `fn` under
+`train_layout="tp"` or `int8_serve`, and a train cell's under adam8bit,
+refuse a mesh of two gloo ranks and name why; NequIP's molecule cell's
+`fn` runs on the (2, 1) mesh of two gloo ranks (the graph split by nodes
+and edges; `tests/test_torch_gnn_ranks.py` holds it against `repro`).
 """
 import pytest
 
@@ -87,15 +89,15 @@ def test_cell_equals_repros(arch, shape, overrides, mesh):
 
 
 def test_lm_and_gnn_cells_and_adam8bit_refuse_two_ranks(tmp_path):
-    """The LM cells under `train_layout="tp"` and `int8_serve` and the GNN
-    forward are not split across ranks, and adam8bit's blocks of 256 would
-    cut a rank's block of a split leaf differently from the whole leaf's:
-    each `fn` refuses the (1, 2) mesh and says why."""
+    """The LM cells under `train_layout="tp"` and `int8_serve` are not
+    split across ranks, and adam8bit's blocks of 256 would cut a rank's
+    block of a split leaf differently from the whole leaf's: each `fn`
+    refuses the (1, 2) mesh and says why. (The GNN cells no longer refuse:
+    `test_nequip_cell_runs_on_two_ranks`.)"""
     cases = [("yi_6b", "train_4k", "adamw", {"train_layout": "tp"}),
              ("yi_6b", "prefill_32k", "adamw", {"int8_serve": True}),
              ("yi_6b", "decode_32k", "adamw", {"int8_serve": True}),
              ("yi_6b", "long_500k", "adamw", {"int8_serve": True}),
-             ("nequip", "molecule", "adamw", None),
              ("yi_6b", "train_4k", "adam8bit", None),
              ("taobao_ssa", "train_batch", "adam8bit", None)]
     ranks = torch_ranks.run_ranks(torch_ranks.refuse_cell_rank, 2, tmp_path, cases)
@@ -109,3 +111,20 @@ def test_lm_and_gnn_cells_and_adam8bit_refuse_two_ranks(tmp_path):
                 assert "on a mesh of 2 ranks" in msg, (arch, shape)
             else:
                 assert "mesh of one rank" in msg and "has 2" in msg, (arch, shape)
+
+
+def test_nequip_cell_runs_on_two_ranks(tmp_path):
+    """NequIP's molecule cell's `fn` on the (2, 1) mesh: each rank holds
+    half of the nodes and edges, its forward block is the one-rank
+    forward's block of the whole graph within 1e-5 of the largest |output|,
+    and both take the same step (the loss and the norm of the whole
+    graph's gradient), finite, the params' shapes kept."""
+    ranks = torch_ranks.run_ranks(torch_ranks.gnn_cell_rank, 2, tmp_path, (2, 1))
+    assert [r["coord"] for r in ranks] == [(0, 0), (1, 0)]
+    scale = max(float(np.abs(r["one_rank"]).max()) for r in ranks)
+    for r in ranks:  # the rank's block of the forward, as the one-rank call gives it
+        assert np.abs(r["out"] - r["one_rank"]).max() <= 1e-5 * scale, r["coord"]
+    assert all(r["finite"] and r["same_shapes"] for r in ranks)
+    assert ranks[0]["metrics"] == ranks[1]["metrics"]
+    assert set(ranks[0]["metrics"]) == {"mse", "grad_norm", "loss"}
+    assert ranks[0]["metrics"]["loss"] > 0 and ranks[0]["metrics"]["grad_norm"] > 0

@@ -1441,3 +1441,22 @@ def test_split_decode_attention_over_two_ranks_on_card_matches_the_whole(cuda_de
             assert np.isfinite(r[i]).all()
             assert np.abs(r[i] - whole).max() <= tol * np.abs(whole).max(), (i, dtype)
         assert np.array_equal(ranks[0][i], ranks[1][i])
+
+
+@pytest.mark.cuda
+def test_nequip_across_two_ranks_on_card_matches_the_whole(cuda_device, tmp_path):
+    """NequIP's molecule cell (2 layers of 8 channels) on the (2, 1) mesh of
+    two gloo ranks sharing the card: each rank's forward block is the
+    one-rank forward's block of the whole graph within 1e-5 of its largest
+    |output| (a node's messages summed over the ranks in another order),
+    both ranks take the same step, and each launches `embedding_bag` once
+    a step, on its own block of the species."""
+    import torch_ranks
+
+    ranks = torch_ranks.run_ranks(torch_ranks.gnn_cell_rank, 2, tmp_path, (2, 1), "cuda")
+    scale = max(float(np.abs(r["one_rank"]).max()) for r in ranks)
+    for r in ranks:
+        assert np.isfinite(r["out"]).all() and r["finite"] and r["same_shapes"]
+        assert np.abs(r["out"] - r["one_rank"]).max() <= 1e-5 * scale, r["coord"]
+        assert r["launches"] == 1, r["coord"]
+    assert ranks[0]["metrics"] == ranks[1]["metrics"]

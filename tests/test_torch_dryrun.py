@@ -2,14 +2,17 @@
 
 Parity: the rank tests' reduced yi_6b- and olmoe-shaped LM cells
 (`test_torch_lm_ranks_train._desc`: 2 layers, D 512, f32; train, prefill
-and decode at small sizes of their shapes' kinds) and fm, din, autoint and
-dien's recsys cells as configured (train and serve at 512 examples), on the
-(1, 1) and (2, 2) meshes. The port traces each cell on a fake process group
-of 1 or 4 ranks (rank 0's blocks, fake tensors); `repro` jits the same cell
+and decode at small sizes of their shapes' kinds), fm, din, autoint and
+dien's recsys cells as configured (train and serve at 512 examples), and
+NequIP's two kinds reduced as `test_torch_gnn_ranks` reduces them (2
+layers, 8 channels; molecule: 16 molecules, full_graph_sm: 480 nodes,
+1,440 edges, 16 features), on the (1, 1) and (2, 2) meshes. The port
+traces each cell on a fake process group of 1 or 4 ranks (rank 0's
+blocks, fake tensors); `repro` jits the same cell
 on as many forced CPU devices (`torch_ranks.Reference`; its subprocess puts
 the smaller shapes into `repro.configs.shapes.FAMILY_SHAPES`, which edits
 no file) and reads `hlo_stats.analyze` of the compiled HLO. The port's dot
-flops equal `repro`'s within rel 1e-6, less three gaps, each asserted to
+flops equal `repro`'s within rel 1e-6, less four gaps, each asserted to
 the flop by formula (`_gap`; PERF.md §6 has the ops):
 
 - DIEN serve: the AUGRU's recurrence h @ wh, dots in `repro`'s scan and a
@@ -22,12 +25,30 @@ the flop by formula (`_gap`; PERF.md §6 has the ops):
 - olmoe decode across ranks: the port's `moe_ffn_tp` routes the whole
   batch on every rank; XLA splits the router's product by rows and by its
   contraction: 2·E·(B·D − (B/dp)·(D/tp)) more a layer.
+- NequIP (L ≥ 2 layers of C channels; E edges and N nodes a rank, the
+  graph split over "data"): the port counts 1062·E·C·L + 1548·E·C +
+  56·N·C² + 144·E − 828·E·L fewer. (a) 1062·E·C a layer: the coupling
+  paths' 3×3 products (`_p121`, `_p122`, `_p221`, `_p222`: `irreps._mm3`
+  and elementwise sums in the port, no dot), which XLA holds as dots
+  batched over the edges, forward, remat recompute and gradient. (b)
+  1548·E·C and 56·N·C²: `repro`'s scan transposes every layer whole,
+  where eager autograd skips the gradient of an op whose inputs need none
+  (the first layer's zero l ≥ 1 features) or whose output reaches no loss
+  (the last layer's l ≥ 1 outputs): there the 774·E·C of `to_matrix`,
+  `to_vec5` and `_p122`'s Levi-Civita product, and 16·N·C² (the first
+  layer's self_1 and self_2 input gradients), 32·N·C² (the last layer's
+  self_1 and self_2) and 8·N·C² (its gate). (c) 144·E − 828·E·L: the
+  edges' own `to_matrix(Y_2)` (4 paths) and Levi-Civita product of Y_1,
+  which the port computes in each path of each layer, forward and
+  recompute (2·L·(4·90 + 54)·E), and XLA hoists out of the layer loop and
+  computes once ((90 + 54)·E).
 
 Each rank's `argument_bytes` equals the bytes of its blocks under the cell's
 `in_specs`. The command line writes a record with `repro`'s keys (but the
-two XLA-only ones, `raw_cost_analysis` and `hlo_bytes`) and refuses
-NequIP's cell and an LM layout that runs on one rank only with `.err.json`
-and exit 1. `analysis.model_flops_lm` and `mfu_ratio` equal `repro`'s.
+two XLA-only ones, `raw_cost_analysis` and `hlo_bytes`), NequIP's
+molecule cell on 16x16 among them (its collectives all-gathers and
+reduce-scatters), and refuses an LM layout that runs on one rank only
+with `.err.json` and exit 1. `analysis.model_flops_lm` and `mfu_ratio` equal `repro`'s.
 """
 import json
 import os
@@ -44,8 +65,10 @@ import torch_workers  # noqa: E402,F401
 from repro.configs.base import get_config as repro_config  # noqa: E402
 from repro.launch import analysis as repro_analysis  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
-from repro_torch.configs.shapes import FAMILY_SHAPES  # noqa: E402
+from repro_torch.configs.shapes import FAMILY_SHAPES, GNNShape  # noqa: E402
 from repro_torch.launch import analysis, dryrun  # noqa: E402
+from repro_torch.launch.cells import build_cell  # noqa: E402
+from repro_torch.launch.mesh import AbstractMesh  # noqa: E402
 from repro_torch.launch.hlo_stats import COLL_KINDS  # noqa: E402
 from test_torch_lm_ranks_train import _desc  # noqa: E402
 
@@ -57,6 +80,11 @@ LM_SHAPES = {"train": ("train_4k", {"seq_len": 32, "global_batch": 8}),
              "decode": ("decode_32k", {"seq_len": 64, "global_batch": 8})}
 REC_SHAPES = {"train": "train_batch", "serve": "serve_p99"}
 REC_BATCH = 512
+GNN_OVER = {"n_layers": 2, "d_hidden": 8}
+GNN_CASE_SHAPES = {"molecule": {"name": "molecule", "n_nodes": 30, "n_edges": 64, "d_feat": None,
+                           "kind": "batched_small", "graph_batch": 16},
+              "full_graph_sm": {"name": "full_graph_sm", "n_nodes": 480, "n_edges": 1440,
+                                "d_feat": 16, "kind": "full_batch"}}
 DEADLINE_S = 240
 
 
@@ -73,6 +101,9 @@ def _cases():
             out.append({"id": f"{arch}:{kind}", "family": "recsys", "arch": arch, "over": {},
                         "shape_name": name,
                         "shape": {"name": name, "kind": kind, "batch": REC_BATCH}})
+    for name, shape in GNN_CASE_SHAPES.items():
+        out.append({"id": f"nequip:{name}", "family": "gnn", "arch": "nequip", "over": GNN_OVER,
+                    "shape_name": name, "shape": shape})
     return out
 
 
@@ -105,7 +136,7 @@ def block_bytes(tree, specs):
 
 out = {}
 for c in cases:
-    cls = {"lm": shapes.LMShape, "recsys": shapes.RecSysShape}[c["family"]]
+    cls = {"lm": shapes.LMShape, "recsys": shapes.RecSysShape, "gnn": shapes.GNNShape}[c["family"]]
     cell = build_cell(c["arch"], c["shape_name"], mesh, cfg=get_config(c["arch"], **c["over"]),
                       shape=cls(**c["shape"]))
     t = dryrun.trace(cell, mesh, torch.device("cpu"))
@@ -129,7 +160,7 @@ mesh = compat_make_mesh(mesh_shape, ("data", "model"),
                         devices=jax.devices()[:int(np.prod(mesh_shape))])
 out = {}
 for c in cases:
-    cls = {"lm": shapes.LMShape, "recsys": shapes.RecSysShape}[c["family"]]
+    cls = {"lm": shapes.LMShape, "recsys": shapes.RecSysShape, "gnn": shapes.GNNShape}[c["family"]]
     # a smaller shape of the registered kind, in this process only
     shapes.FAMILY_SHAPES[c["family"]][c["shape_name"]] = cls(**c["shape"])
     cell = build_cell(c["arch"], c["shape_name"], mesh, overrides=c["over"])
@@ -187,6 +218,12 @@ def _gap(case, mesh) -> float:
         B, D, E = case["shape"]["global_batch"], cfg.d_model, cfg.n_experts
         layers = cfg.n_layers // cfg.moe_interleave
         return layers * 2 * E * (B * D - (B // dp) * (D // tp))
+    if case["arch"] == "nequip":
+        cfg = get_config("nequip", **case["over"])
+        meta = build_cell("nequip", case["shape_name"], AbstractMesh((1, 1), ("data", "model")),
+                          cfg=cfg, shape=GNNShape(**case["shape"])).meta
+        N, E, C, L = meta["nodes"] // dp, meta["edges"] // dp, cfg.d_hidden, cfg.n_layers
+        return -(1062 * E * C * L + 1548 * E * C + 56 * N * C * C + 144 * E - 828 * E * L)
     return 0
 
 
@@ -246,8 +283,25 @@ def test_the_command_line_writes_a_record_with_repros_keys(cli):
     assert stdout.startswith("OK fm:serve_p99 [16x16]")
 
 
+def test_nequips_cell_writes_a_record_of_gathers_and_reduce_scatters(cli):
+    """NequIP's molecule cell on 16x16: each rank all-gathers the node
+    blocks (positions, each layer's features) and reduce-scatters the
+    messages' sums and the gathers' gradients over "data"."""
+    tmp, done = cli
+    rc, stdout, stderr = done["nequip"]
+    assert rc == 0, stderr
+    assert not (tmp / "nequip__molecule__single.err.json").exists()
+    rec = json.loads((tmp / "nequip__molecule__single.json").read_text())
+    assert REPRO_KEYS <= set(rec)
+    assert rec["mesh"] == "16x16" and rec["meta"]["kind"] == "train"
+    counts = rec["collective_counts"]
+    assert counts["all-gather"] > 0 and counts["reduce-scatter"] > 0, counts
+    assert rec["collectives"]["all-gather"] > 0 and rec["collectives"]["reduce-scatter"] > 0
+    assert rec["kernels"]["embedding_bag"]["calls"] == 1  # the species of this rank's nodes
+    assert stdout.startswith("OK nequip:molecule [16x16]")
+
+
 @pytest.mark.parametrize("which,name,refusal", [
-    ("nequip", "nequip__molecule__single.err.json", "runs on a mesh of one rank"),
     ("tp", "yi_6b__train_4k__single__tp.err.json", "ValueError"),
 ])
 def test_a_cell_that_refuses_its_mesh_writes_err_json(cli, which, name, refusal):

@@ -542,3 +542,124 @@ def split_decode_rank(rank, world, device, cases):
             n_global=c["n_global"])
         out.append(o.float().cpu().numpy())
     return out
+
+
+def gnn_rules(cfg, mesh):
+    """The rules a NequIP cell of `cfg` runs under on `mesh`
+    (`launch/cells._gnn_cell`'s): `GNN_RULES`, the nodes and edges over
+    the whole mesh under `full_mesh_graph`."""
+    from repro_torch.distributed.sharding import GNN_RULES, adapt_rules, mesh_axis_names
+
+    rules = adapt_rules(GNN_RULES, mesh)
+    if cfg.full_mesh_graph:
+        full = tuple(a for a in ("pod", "data", "model") if a in mesh_axis_names(mesh))
+        rules = {**rules, "nodes": full, "edges": full}
+    return rules
+
+
+def gnn_rank(rank, world, cases):
+    """Each NequIP case through `launch/cells.build_cell` on its mesh of
+    this world's ranks (gloo, on the CPU), on this rank's blocks of the
+    case's whole numpy params and graph (`cut` under the cell's
+    `in_specs`). A case is a dict: "mesh" (its shape), "cfg" (the port's
+    config), "shape_name", "shape" (a `GNNShape`), "params", "graph".
+    Returns per case this rank's coordinate and, in numpy: the forward's
+    output block ("out") and the one-rank forward's block of the whole
+    graph ("one_rank"), the loss and the whole gradients
+    (`value_and_grad` under the step's rules: the parts summed over the
+    node dims), and the cell's train step from a fresh AdamW state twice
+    ("step", and whether the second gave the same bits)."""
+    from repro_torch.distributed.sharding import block_slices
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import axis_names, make_mesh
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.gnn import nequip
+    from repro_torch.training.optimizer import get_optimizer
+    from repro_torch.training.train_loop import value_and_grad
+
+    meshes = {}
+    out = []
+    for case in cases:
+        shape = tuple(case["mesh"])
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, axis_names(shape), "cpu")
+        mesh = meshes[shape]
+        coord = tuple(mesh.get_coordinate())
+        cfg = case["cfg"]
+        cell = build_cell("nequip", case["shape_name"], mesh, cfg=cfg, shape=case["shape"])
+        rules = gnn_rules(cfg, mesh)
+        params = cut(case["params"], cell.in_specs[0], mesh, coord)
+        graph = cut(case["graph"], cell.in_specs[2], mesh, coord)
+        loss_fn = (nequip.energy_loss if "energies" in graph else nequip.node_class_loss)
+        with torch.no_grad():
+            fwd = nequip.forward(params, graph, cfg, rules)
+            whole = nequip.forward(params, _tensors(case["graph"]), cfg)
+        rows = block_slices(tuple(whole.shape), cell.in_specs[2]["positions"], mesh, coord)
+        loss, _, grads = value_and_grad(lambda p, b: loss_fn(p, b, cfg, rules), params, graph,
+                                        {**rules, "batch": rules["nodes"]})
+        opt = get_optimizer("adamw")
+        steps = [cell.fn(params, opt.init(params), graph) for _ in range(2)]
+        leaves = [[t for _, t in tree_leaves(_as_dicts(s))] for s in steps]
+        out.append({"coord": coord, "out": to_numpy(fwd), "one_rank": to_numpy(whole[rows]),
+                    "loss": float(loss), "grads": _numpy_tree(grads),
+                    "step": _numpy_tree(steps[0]),
+                    "step_repeats": all(torch.equal(a, b) for a, b in zip(*leaves))})
+    return out
+
+
+def gnn_cell_rank(rank, world, mesh_shape, device="cpu"):
+    """NequIP's molecule cell (`launch/cells.build_cell`, 2 layers of 8
+    channels, 16 molecules padded to 512 atoms and 1,024 edges) on this
+    world's `mesh_shape` (gloo; tensors on `device`, "cuda" being card 0
+    shared by the ranks): its forward and its `fn` from seed-0 weights and
+    a fresh AdamW state on this rank's blocks of one batch. Returns the
+    rank's coordinate, the forward's block and the one-rank forward's
+    block of the whole graph (numpy), the metrics, the `embedding_bag`
+    launches of the step, whether every output is finite and whether the
+    updated params keep their shapes."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.shapes import GNNShape
+    from repro_torch.data import synthetic
+    from repro_torch.distributed.sharding import block_slices
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import axis_names, make_mesh
+    from repro_torch.models.common import init_params, tree_leaves
+    from repro_torch.models.gnn import nequip
+    from repro_torch.training.optimizer import get_optimizer
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    mesh = make_mesh(mesh_shape, axis_names(mesh_shape), "cpu")
+    coord = tuple(mesh.get_coordinate())
+    cfg = dataclasses.replace(get_config("nequip"), n_layers=2, d_hidden=8)
+    shape = GNNShape("molecule", n_nodes=30, n_edges=64, d_feat=None, kind="batched_small",
+                     graph_batch=16)
+    cell = build_cell("nequip", "molecule", mesh, cfg=cfg, shape=shape)
+    g = synthetic.molecule_batch(16, 30, 64, seed=0)
+    N, n = cell.meta["nodes"], g["positions"].shape[0]
+
+    def pad(a, fill):
+        return np.concatenate([a, np.full((N - n,) + a.shape[1:], fill, a.dtype)])
+
+    g = {**g, "positions": pad(g["positions"], 1.0), "species": pad(g["species"], 0),
+         "graph_ids": pad(g["graph_ids"], 0), "node_mask": pad(np.ones(n, bool), False),
+         "edge_mask": np.ones(g["edge_src"].shape, bool)}
+    params = init_params(nequip.param_defs(cfg, n_classes=1), torch.Generator().manual_seed(0),
+                         device)
+    to = lambda tree: {k: v.to(device) for k, v in tree.items()}  # noqa: E731
+    blocks = to(cut(g, cell.in_specs[2], mesh, coord))
+    with torch.no_grad():
+        fwd = nequip.forward(params, blocks, cfg, gnn_rules(cfg, mesh))
+        whole = nequip.forward(params, to(_tensors(g)), cfg)
+    rows = block_slices(tuple(whole.shape), cell.in_specs[2]["positions"], mesh, coord)
+    eb_ops.launches = 0
+    new, _, metrics = cell.fn(params, get_optimizer("adamw").init(params), blocks)
+    return {"coord": coord, "out": to_numpy(fwd), "one_rank": to_numpy(whole[rows]),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "launches": eb_ops.launches,
+            "finite": all(bool(torch.isfinite(t).all()) for _, t in tree_leaves(new)),
+            "same_shapes": [t.shape for _, t in tree_leaves(new)]
+            == [t.shape for _, t in tree_leaves(params)]}
