@@ -194,27 +194,38 @@ rule).
    on the one card: 2 and then 4 processes (spawned; gloo groups, every tensor on cuda:0,
    each exchange copied through host memory), as (1, 2), (2, 2) and
    (1, 4) meshes, run taobao_ssa's and FM's serve_p99, retrieval_cand and
-   one AdamW step at `RANK_STEP_BATCH`, and taobao_ssa's serve_p99 under
-   the C2 window and with a structured-pruned tower, each rank on its
-   blocks (the kernel's row range sees the other ranks' ids; the C2 and
-   pruned calls launch `local_attention` and `block_pruned_matmul`):
-   every forward block the one-rank call's bits on the whole tables and
-   the rank's blocks of the rest, the step within phase 5's rule against
-   the one-rank step's block.
+   one AdamW step at `RANK_STEP_BATCH`, taobao_ssa's serve_p99 under
+   the C2 window and with a structured-pruned tower, and its adam8bit
+   step at `RANK_STEP_BATCH`, each rank on its blocks (the kernel's row
+   range sees the other ranks' ids; the C2 and pruned calls launch
+   `local_attention` and `block_pruned_matmul`): every forward block the
+   one-rank call's bits on the whole tables and the rank's blocks of the
+   rest, each step within phase 5's rule against the one-rank step's
+   block, and adam8bit's update on the one-rank step's clipped gradients
+   the one-rank update's bits (`_a8_shared_bits`).
 20. lm_ranks — the LM trunk across ranks, which launches none of the six
-   kernels: yi_6b and olmoe_1b_7b at full width cut to 2 layers, bf16,
+   kernels: yi_6b and olmoe_1b_7b at full width cut to 1 layer, bf16,
    weights from seed 20 (olmoe's capacity factor 4: no entry drops on any
    mesh). The one-rank calls first, saved to the host: the cross
    entropy's gradients and an AdamW step of 4 × 1,024 tokens, a prefill of
    4 × 2,048, 8 decode steps of 4 rows from a 4,096-position prefill, and
-   4 batch-1 C2 decode steps from a 16,384-position prefill (olmoe's two
+   4 batch-1 C2 decode steps from an 8,192-position prefill (olmoe's two
    decodes also with its weights in f32). Then 2 and 4 processes sharing
    the card over gloo (every exchange through host memory) as (1, 2) and
    (2, 2) meshes run `launch/cells`' LM cells on their blocks
    (the decode's cache split over "model", the long-context one over
    ("data", "model")); each rank's ms, peak GB and largest difference from
    the one-rank call's block, held at `LM_RANK_*_TOL` (an MoE arch's bf16
-   decode is recorded, its f32 decode held: see `LM_RANK_F32_TOL`).
+   decode is recorded, its f32 decode held: see `LM_RANK_F32_TOL`). Then
+   the LM's other layouts, at fewer tokens (`LM_RANK_LAYOUT_*`):
+   yi_6b's train cell under `train_layout="tp"` (the cross entropy's
+   gradients, an AdamW and an adam8bit step of 2 × 512 tokens, and
+   adam8bit's update on the one-rank gradients to the bit), its
+   `int8_serve` prefill of 2 × 1,024 and 4 decode steps (int8 codes and
+   scales from seed 20), and olmoe_1b_7b's loss gradients, step and
+   prefill under `moe_impl="gspmd"` (the whole batch's dispatch, so aux
+   too is the one-rank call's); each step's updated params within phase
+   5's rule of the one-rank step's block.
 21. dryrun — run right after the build, while the card holds nothing
    else: `launch/dryrun`, which launches no kernel. (a) fm serve_p99 and
    yi_6b decode_32k on the 16x16 mesh (fake process groups of 256 ranks,
@@ -294,10 +305,11 @@ from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.models.gnn import nequip, sampler  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as eb_ops  # noqa: E402
 from repro_torch.models.common import (  # noqa: E402
-    init_params, param_count, param_pspecs, tree_leaves, tree_map,
+    float_tree, init_params, param_count, param_pspecs, tree_leaves, tree_map,
 )
 from repro_torch.models.recsys import api  # noqa: E402
-from repro_torch.training.optimizer import adamw, sgd  # noqa: E402
+from repro_torch.training.optimizer import adam8bit, adamw, get_optimizer, sgd  # noqa: E402
+from repro_torch.training.optimizer import state_pspecs  # noqa: E402
 from repro_torch.training.train_loop import make_train_step  # noqa: E402
 
 SIZES = (1, 8, 32, 128, 512)
@@ -2330,13 +2342,15 @@ def _rec_batch(cfg, meta: dict, gen, device) -> dict:
     return out
 
 
-def _rec_args(cfg, cell, gen, device="cuda") -> tuple:
-    """Whole arguments for a recsys cell: params from `gen`, AdamW's first
-    state, a batch (or a query and candidate ids) from `gen`."""
+def _rec_args(cfg, cell, gen, device="cuda", optimizer="adamw") -> tuple:
+    """Whole arguments for a recsys cell: params from `gen`, the optimizer's
+    (AdamW's) first state, a batch (or a query and candidate ids) from
+    `gen`."""
     params = init_params(api.param_defs(cfg), gen, device)
     kind = cell.meta["kind"]
     if kind == "train":
-        return params, adamw(RANK_LR).init(params), _rec_batch(cfg, cell.args[2], gen, device)
+        return (params, get_optimizer(optimizer, RANK_LR).init(params),
+                _rec_batch(cfg, cell.args[2], gen, device))
     if kind == "serve":
         return params, _rec_batch(cfg, cell.args[1], gen, device)
     if cfg.interaction in ("fm", "self_attn"):
@@ -2348,13 +2362,52 @@ def _rec_args(cfg, cell, gen, device="cuda") -> tuple:
     return params, _rec_batch(cfg, cell.args[1], gen, device), cand
 
 
-def _rec_plain(cfg, kind):
+def _rec_plain(cfg, kind, optimizer="adamw"):
     """The one-rank call a cell's `fn` is held against: no rules."""
     if kind == "serve":
         return lambda p, b: api.serve(p, b, cfg)
     if kind == "retrieval":
         return lambda p, q, c: api.retrieval(p, q, c, cfg)
-    return make_train_step(lambda p, b: api.loss(p, b, cfg), adamw(RANK_LR))
+    return make_train_step(lambda p, b: api.loss(p, b, cfg), get_optimizer(optimizer, RANK_LR))
+
+
+def _a8_shared_bits(params, grads, specs, mesh, coord) -> dict:
+    """adam8bit on shared gradients, a leaf at a time: this rank's update of
+    its block from a fresh state (`update(..., (mesh, specs))`: a new
+    scale is the largest |value| of its block of 256 along the whole last
+    axis, a max over the ranks that split it) against the one-rank update
+    of the same gradients, from the same state. The one-rank update runs
+    on this rank's block of the leading dims with the whole last axis (its
+    blocks run along the last axis alone, so that is its block of the
+    whole leaf's update). {leaf: whether the update, the codes and the
+    scales have the one-rank call's bits}."""
+    opt = adam8bit(RANK_LR)
+    o_specs = state_pspecs("adam8bit", specs, params)["m"]
+    out = {}
+    for path, p in tree_leaves(float_tree(params)):
+        spec, ospec = _leaf(specs, path), _leaf(o_specs, path)
+        lead = P(*list(spec)[:p.dim() - 1]) if len(spec) == p.dim() else spec
+        rows = block_slices(p.shape, lead, mesh, coord)
+        cols = block_slices(p.shape, spec, mesh, coord)[-1:] if len(spec) == p.dim() else ()
+        g = _leaf(grads, path).to(p.device)
+        one = {"x": p[rows]}
+        u1, st1 = opt.update({"x": g[rows]}, opt.init(one), one)
+        mine = {"x": p[block_slices(p.shape, spec, mesh, coord)].contiguous()}
+        state = opt.init({"x": p})
+        state = {"m": {"x": {k: _cut_block(v, ospec[k], mesh, coord)
+                             for k, v in state["m"]["x"].items()}},
+                 "v": {"x": {k: _cut_block(v, ospec[k], mesh, coord)
+                             for k, v in state["v"]["x"].items()}}, "count": state["count"]}
+        u, st = opt.update({"x": _cut_block(g, spec, mesh, coord)}, state, mine,
+                           (mesh, {"x": spec}))
+        at = (Ellipsis,) + tuple(cols)
+        same = torch.equal(u["x"], u1["x"][at])
+        for mv in ("m", "v"):
+            same &= torch.equal(st[mv]["x"]["q"], st1[mv]["x"]["q"][at])
+            same &= torch.equal(st[mv]["x"]["s"], st1[mv]["x"]["s"])
+        out["/".join(path)] = bool(same)
+        del one, u1, st1, mine, state, u, st
+    return out
 
 
 def _tree_list(tree) -> list:
@@ -2545,7 +2598,8 @@ def _rank_cases(mesh) -> list:
     cases = [(arch, shape_name, shape, "") for arch in RANK_ARCHS
              for shape_name, shape in (("serve_p99", None), ("retrieval_cand", None),
                                        ("train_batch", step))]
-    cases += [("taobao_ssa", "serve_p99", None, "c2"), ("taobao_ssa", "serve_p99", None, "pruned")]
+    cases += [("taobao_ssa", "serve_p99", None, "c2"), ("taobao_ssa", "serve_p99", None, "pruned"),
+              ("taobao_ssa", "train_batch", step, "a8")]
     out = []
     for arch, shape_name, shape, variant in cases:
         cfg = get_config(arch)
@@ -2553,8 +2607,9 @@ def _rank_cases(mesh) -> list:
             cfg = with_attn_window(cfg, C2_WINDOW)
         gen = torch.Generator(device="cuda").manual_seed(23)  # the same on every rank
         torch.cuda.reset_peak_memory_stats()
-        cell = cells.build_cell(arch, shape_name, mesh, cfg=cfg, shape=shape)
-        whole = _rec_args(cfg, cell, gen)
+        optimizer = "adam8bit" if variant == "a8" else "adamw"
+        cell = cells.build_cell(arch, shape_name, mesh, cfg=cfg, shape=shape, optimizer=optimizer)
+        whole = _rec_args(cfg, cell, gen, optimizer=optimizer)
         specs = cell.in_specs
         if variant == "pruned":
             whole = (pruning.with_block_masks(pruning.prune_tree(whole[0], 0.5, structured=True)),
@@ -2570,7 +2625,7 @@ def _rank_cases(mesh) -> list:
                "through_host": collectives.through_host(
                    got if torch.is_tensor(got) else got[2]["loss"], mesh.get_group("model"))}
         kind = cell.meta["kind"]
-        plain = _rec_plain(cfg, kind)
+        plain = _rec_plain(cfg, kind, optimizer)
         if kind != "train":
             own = plain(whole[0], *blocks[1:])
             ref = _cut_block(plain(*whole), cell.out_specs, mesh, coord)
@@ -2585,21 +2640,30 @@ def _rank_cases(mesh) -> list:
             blocks = got = None
             before = _to_cpu(_cut_block(whole[0], specs[0], mesh, coord))
             sgd_step = make_train_step(lambda p, b: api.loss(p, b, cfg), sgd(1.0, momentum=0.0))
-            clipped = _to_cpu(_cut_block(sgd_step(whole[0], sgd(1.0, momentum=0.0).init(whole[0]),
-                                                  whole[2])[0], specs[0], mesh, coord))
+            sgd_after = sgd_step(whole[0], sgd(1.0, momentum=0.0).init(whole[0]), whole[2])[0]
+            clipped = _to_cpu(_cut_block(sgd_after, specs[0], mesh, coord))
+            # adam8bit's shared gradients: the one-rank step's clipped ones
+            whole_grads = (tree_map(lambda a, b: a - b, float_tree(whole[0]),
+                                    float_tree(sgd_after)) if variant == "a8" else None)
+            del sgd_after
             grads = {path: b - a for (path, b), (_, a)
                      in zip(tree_leaves(before), tree_leaves(clipped))}
             floor = TRAIN_ZERO_GRAD_REL * max(float(g.abs().max()) for g in grads.values())
             zero = {p for p, g in grads.items() if float(g.abs().max()) <= floor}
             one, _, one_m = plain(*whole)
             host = _to_cpu(_cut_block(one, specs[0], mesh, coord))
-            del one
+            if whole_grads is not None:
+                t0 = time.perf_counter()
+                same = _a8_shared_bits(whole[0], whole_grads, specs[0], mesh, coord)
+                rec.update(a8_shared_leaves=len(same), a8_shared_seconds=time.perf_counter() - t0,
+                           a8_shared_differing=[k for k, v in same.items() if not v])
+            del one, whole_grads
             worst, rows = _compare_step(f"{arch}@{mesh.shape}", before, after, host, grads, zero,
                                         RANK_LR)
             rec.update(max_abs_diff=worst, loss=loss, loss_one_rank=float(one_m["loss"]),
                        grad_norm=gnorm, grad_norm_one_rank=float(one_m["grad_norm"]),
                        bad_leaves=[r["leaf"] for r in rows if not r["ok"]])
-            rec["ok"] = (not rec["bad_leaves"]
+            rec["ok"] = (not rec["bad_leaves"] and not rec.get("a8_shared_differing")
                          and abs(loss - rec["loss_one_rank"]) <= LOSS_REL * abs(loss)
                          and abs(gnorm - rec["grad_norm_one_rank"]) <= GRAD_NORM_REL * gnorm)
         kernel = {"c2": "local_attention", "pruned": "block_pruned_matmul"}.get(variant)
@@ -2707,7 +2771,7 @@ def phase_recsys_cells() -> dict:
 
 
 # phase 20: the LM trunk across ranks on one card: yi_6b and olmoe_1b_7b at
-# full width cut to 2 layers, bf16, weights from seed 20, over gloo ranks
+# full width cut to 1 layer, bf16, weights from seed 20, over gloo ranks
 # sharing the card (every tensor on cuda:0, each exchange through host
 # memory), each rank's blocks against the one-rank call on the same card.
 # olmoe's capacity factor is raised so that no entry drops on any mesh:
@@ -2720,12 +2784,12 @@ def phase_recsys_cells() -> dict:
 # hold it against `repro`
 LM_RANK_ARCHS = ("yi_6b", "olmoe_1b_7b")
 LM_RANK_WORLDS = {2: ((1, 2),), 4: ((2, 2),)}
-LM_RANK_LAYERS, LM_RANK_SEED, LM_RANK_CAPACITY = 2, 20, 4.0
+LM_RANK_LAYERS, LM_RANK_SEED, LM_RANK_CAPACITY = 1, 20, 4.0
 LM_RANK_TRAIN = (4, 1024)  # the AdamW step's batch x tokens
 LM_RANK_PREFILL = (4, 2048)
 LM_RANK_DECODE = (4, 4096, 8)  # batch, cache positions (a prefill's), steps
 LM_RANK_DECODE_POS = (100, 1500, 2047, 4000)  # each row's first position
-LM_RANK_LONG = (16384, 4, 9000)  # batch 1: cache positions, steps, first position
+LM_RANK_LONG = (8192, 4, 5000)  # batch 1: cache positions, steps, first position
 # against the one-rank call, of the largest |value| of the one-rank output:
 # the bf16 tolerances the port holds against jitted `repro` (ROADMAP Queue
 # 3): logits and caches 3e-2, each gradient leaf 4e-2, the loss 1e-3. An
@@ -2737,6 +2801,17 @@ LM_RANK_LONG = (16384, 4, 9000)  # batch 1: cache positions, steps, first positi
 LM_RANK_LOGITS_TOL, LM_RANK_GRAD_TOL, LM_RANK_LOSS_TOL = 3e-2, 4e-2, 1e-3
 LM_RANK_F32_TOL = 1e-4
 LM_RANK_TIMEOUT_S = 600
+# the LM's other layouts, at fewer tokens than the cases above: yi_6b's
+# train step under train_layout="tp" (the cross entropy's gradients, an
+# AdamW and an adam8bit step) and olmoe_1b_7b's under moe_impl="gspmd"
+# (the whole loss's gradients, with aux, and an AdamW step) (batch x
+# tokens), held at the tolerances above, the grad norm at the loss's, and
+# the updated params by phase 5's rule; yi's int8_serve prefill and
+# olmoe's gspmd one; yi's int8 decode steps from the decode cells' cache
+# and positions
+LM_RANK_LAYOUT_TRAIN = (2, 512)
+LM_RANK_LAYOUT_PREFILL = (2, 1024)
+LM_RANK_INT8_STEPS = 4
 
 
 def _lm_rank_cfg(arch: str):
@@ -2756,7 +2831,41 @@ def _lm_rank_inputs(cfg) -> dict:
             "decode_fill": rng.integers(0, cfg.vocab_size, (Bd, Td)).astype(np.int32),
             "decode": rng.integers(0, cfg.vocab_size, (nd, Bd)).astype(np.int32),
             "long_fill": rng.integers(0, cfg.vocab_size, (1, Tl)).astype(np.int32),
-            "long": rng.integers(0, cfg.vocab_size, (nl, 1)).astype(np.int32)}
+            "long": rng.integers(0, cfg.vocab_size, (nl, 1)).astype(np.int32),
+            "lay_batch": next(synthetic.lm_token_batches(cfg.vocab_size, *LM_RANK_LAYOUT_TRAIN, 1,
+                                                         seed=LM_RANK_SEED + 1)),
+            "lay_prefill": rng.integers(0, cfg.vocab_size,
+                                        LM_RANK_LAYOUT_PREFILL).astype(np.int32)}
+
+
+def _lm_int8_params(cfg):
+    """`_lm_rank_params`' leaves with every weight `transformer.int8_param_defs`
+    converts drawn as int8 {"q","s"} from seed 20: codes uniform in
+    [-127, 127], scales uniform in [0.5, 1.5] / 127, over √d_in for a
+    matrix's per-out-channel ones (the tables' are per row)."""
+    dense = _lm_rank_params(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(LM_RANK_SEED)
+
+    def visit(name, d, p):
+        if not isinstance(d, dict):
+            return p
+        if set(d) != {"q", "s"}:
+            return {k: visit(k, d[k], p[k]) for k in d}
+        q = torch.randint(-127, 128, d["q"].shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = (torch.rand(d["s"].shape, generator=gen, device="cuda") + 0.5) / 127
+        return {"q": q, "s": s if name in ("embed", "lm_head") else s / math.sqrt(q.shape[-2])}
+
+    return visit("", transformer.int8_param_defs(transformer.param_defs(cfg)), dense)
+
+
+def _zero_state(optimizer: str, whole, specs, mesh, coord):
+    """A fresh state of `optimizer` as this rank's blocks under `specs` (a
+    train cell's), made at the block's shapes: the whole state never lies
+    on the card."""
+    meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), whole)
+    blocks = _cut_block(get_optimizer(optimizer).init(meta), specs, mesh, coord)
+    return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device="cuda"), blocks)
 
 
 def _lm_rank_params(cfg):
@@ -2834,12 +2943,216 @@ def _lm_rank_reference(arch: str, root: Path) -> dict:
             ref[kind] = _to_cpu((torch.stack(logits), cache))
             del fill, logits, cache, p
             torch.cuda.empty_cache()
+    ms.update(_lm_layout_reference(arch, cfg, params, ins, ref))
     ref["ms"] = ms
     ref["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     torch.save(ref, root / f"{arch}.pt")
     del params, ins
     torch.cuda.empty_cache()
     return {"ms": ms, "peak_gb": ref["peak_gb"], "metrics": ref["metrics"]}
+
+
+def _lm_layout_loss(arch: str, cfg, rules=None):
+    """Phase 20's loss whose gradients a layout's train case holds: yi's
+    cross entropy (`_ce_loss`); olmoe's whole loss under
+    `moe_impl="gspmd"`, whose aux is the whole batch's."""
+    if arch == "yi_6b":
+        return _ce_loss(cfg, rules)
+    return lambda p, b: transformer.loss(p, b, dataclasses.replace(cfg, moe_impl="gspmd"), rules)
+
+
+def _lm_layout_reference(arch, cfg, params, ins, ref) -> dict:
+    """The one-rank calls of phase 20's other layouts into `ref` (a layout
+    changes nothing on one rank): the gradients of `_lm_layout_loss` on
+    `LM_RANK_LAYOUT_TRAIN`'s batch; yi's AdamW and adam8bit steps on it,
+    its int8 prefill and decode (`_lm_int8_params`); olmoe's AdamW step and
+    prefill under `moe_impl="gspmd"` (the whole batch's dispatch). Each
+    step's updated params are kept. Returns their ms."""
+    from repro_torch.training.train_loop import value_and_grad
+
+    ms = {}
+    batch = ins["lay_batch"]
+    (_, _, grads), ms["lay_grad"] = _timed(lambda: value_and_grad(_lm_layout_loss(arch, cfg),
+                                                                  params, batch))
+    ref["lay_grads"] = _to_cpu(grads)
+    ref["lay_grad_max"] = {"/".join(p): float(g.abs().max()) for p, g in tree_leaves(grads)}
+    del grads
+    if arch == "yi_6b":
+        steps = (("adamw", cfg), ("adam8bit", cfg))
+    else:
+        steps = (("adamw", dataclasses.replace(cfg, moe_impl="gspmd")),)
+    for optimizer, c in steps:
+        opt = get_optimizer(optimizer)
+        step = make_train_step(lambda p, b: transformer.loss(p, b, c), opt)
+        (new, _, m), ms[f"lay_step_{optimizer}"] = _timed(lambda: step(params, opt.init(params),
+                                                                       batch))
+        ref[f"lay_metrics_{optimizer}"] = {k: float(v) for k, v in m.items()}
+        ref[f"lay_after_{optimizer}"] = _to_cpu(new)
+        del m, new
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        if arch == "yi_6b":
+            c, p = dataclasses.replace(cfg, int8_serve=True), _lm_int8_params(cfg)
+        else:
+            c, p = dataclasses.replace(cfg, moe_impl="gspmd"), params
+        out, ms["lay_prefill"] = _timed(lambda: transformer.prefill(p, ins["lay_prefill"], c))
+        ref["lay_prefill"] = _to_cpu(out)
+        del out
+        if arch == "yi_6b":
+            pos = torch.tensor(LM_RANK_DECODE_POS, dtype=torch.int64, device="cuda")
+            logits, t, cache = _lm_decode_run(
+                lambda pp, cc, tok, q: transformer.decode(pp, cc, tok, q, c), p,
+                _fill_as(ref["decode_fill"], cfg.dtype, "cuda"),
+                ins["decode"][:LM_RANK_INT8_STEPS], pos)
+            ms["lay_decode"] = float(np.median(t[1:]))
+            ref["lay_decode"] = _to_cpu((torch.stack(logits), cache))
+            del logits, cache
+        del p
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _lm_layout_cases(arch: str, cfg, mesh, root: Path, ref, ins, base) -> list:
+    """On this rank of `mesh`, phase 20's other layouts (`_lm_layout_reference`
+    has the one-rank calls): yi_6b's train cell under `train_layout="tp"`
+    (the cross entropy's gradients, an AdamW step, an adam8bit step, and
+    adam8bit's update on the one-rank gradients, `_a8_shared_bits`), and its
+    int8_serve prefill and decode cells; olmoe_1b_7b's train cell (its
+    loss's gradients and an AdamW step) and prefill under
+    `moe_impl="gspmd"`. Each step's updated params are held to the
+    one-rank step's (`_lm_step_vs_one`)."""
+    from repro_torch.configs.shapes import LMShape
+    from repro_torch.training.train_loop import value_and_grad
+
+    coord = tuple(mesh.get_coordinate())
+    cut = lambda a, spec: _cut_block(torch.as_tensor(a).cuda(), spec, mesh, coord)  # noqa: E731
+    (B, S), (Bp, Sp), (Bd, Td, _) = LM_RANK_LAYOUT_TRAIN, LM_RANK_LAYOUT_PREFILL, LM_RANK_DECODE
+    over = {"train_layout": "tp"} if arch == "yi_6b" else {"moe_impl": "gspmd"}
+    c = dataclasses.replace(cfg, **over)
+    rules = adapt_rules(LM_RULES, mesh)
+    if arch == "yi_6b":
+        rules = {**rules, "seq": None}  # the tp train cell's: tokens split by batch only
+    whole = _lm_rank_params(cfg)
+    out = []
+    for optimizer in ("adamw", "adam8bit") if arch == "yi_6b" else ("adamw",):
+        cell = cells.build_cell(arch, "train_4k", mesh, cfg=c, shape=LMShape("train_4k", S, B,
+                                                                              "train"),
+                                optimizer=optimizer)
+        params = _cut_block(whole, cell.in_specs[0], mesh, coord)
+        batch = {k: cut(v, cell.in_specs[2][k]) for k, v in ins["lay_batch"].items()}
+        torch.cuda.reset_peak_memory_stats()
+        rec = {**base, "kind": f"train_{next(iter(over.values()))}", "layout": over,
+               "optimizer": optimizer, "tokens": [B, S]}
+        if optimizer == "adamw":
+            (_, _, grads), rec["grad_ms"] = _timed(lambda: value_and_grad(
+                _lm_layout_loss(arch, c, rules), params, batch))
+            errs = {"/".join(p): _rel_block(g, _leaf(ref["lay_grads"], p),
+                                            _leaf(cell.in_specs[0], p), mesh, coord,
+                                            ref["lay_grad_max"]["/".join(p)])
+                    for p, g in tree_leaves(grads)}
+            del grads
+            rec.update(grad_rel_diff_max=max(errs.values()),
+                       grad_leaf_worst=max(errs, key=errs.get))
+        state = _zero_state(optimizer, whole, cell.in_specs[1], mesh, coord)
+        (new, _, m), rec["step_ms"] = _timed(lambda: cell.fn(params, state, batch))
+        metrics, one = {k: float(v) for k, v in m.items()}, ref[f"lay_metrics_{optimizer}"]
+        rec.update(metrics=metrics, one_rank_metrics=one,
+                   one_rank_step_ms=ref["ms"][f"lay_step_{optimizer}"],
+                   **{f"{k}_rel_diff": abs(metrics[k] - one[k]) / abs(one[k])
+                      for k in ("loss", "ce", "grad_norm")},
+                   **_lm_step_vs_one(params, new, ref[f"lay_after_{optimizer}"],
+                                     cell.in_specs[0], mesh, coord))
+        rec["ok"] = (all(rec[f"{k}_rel_diff"] <= LM_RANK_LOSS_TOL
+                         for k in ("loss", "ce", "grad_norm"))
+                     and rec["param_excess_max"] <= 2 * RANK_LR
+                     and rec["params_off_share"] <= TRAIN_ADAM_SHARE)
+        del new
+        if "grad_rel_diff_max" in rec:
+            rec["ok"] = rec["ok"] and rec["grad_rel_diff_max"] <= LM_RANK_GRAD_TOL
+        if arch != "yi_6b":  # the whole batch's aux: the one-rank call's
+            rec["aux_rel_diff"] = abs(metrics["aux"] - one["aux"]) / abs(one["aux"])
+            rec["ok"] = rec["ok"] and rec["aux_rel_diff"] <= LM_RANK_LOSS_TOL
+        if optimizer == "adam8bit":
+            t0 = time.perf_counter()
+            same = _a8_shared_bits(whole, ref["lay_grads"], cell.in_specs[0], mesh, coord)
+            rec.update(a8_shared_leaves=len(same), a8_shared_seconds=time.perf_counter() - t0,
+                       a8_shared_differing=[k for k, v in same.items() if not v])
+            rec["ok"] = rec["ok"] and not rec["a8_shared_differing"]
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out.append(rec)
+        del params, state, batch, m
+        torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        c = dataclasses.replace(cfg, int8_serve=True) if arch == "yi_6b" else c
+        if arch == "yi_6b":
+            del whole
+            whole = _lm_int8_params(cfg)
+        cell = cells.build_cell(arch, "prefill_32k", mesh, cfg=c,
+                                shape=LMShape("prefill_32k", Sp, Bp, "prefill"))
+        params = _cut_block(whole, cell.in_specs[0], mesh, coord)
+        del whole
+        torch.cuda.reset_peak_memory_stats()
+        (logits, (k, v)), ms = _timed(lambda: cell.fn(params, cut(ins["lay_prefill"],
+                                                                   cell.in_specs[1])))
+        lspec, (cspec, _) = cell.out_specs
+        diffs = {"logits": _rel_block(logits, ref["lay_prefill"][0], lspec, mesh, coord),
+                 "k": _rel_block(k, ref["lay_prefill"][1][0], cspec, mesh, coord),
+                 "v": _rel_block(v, ref["lay_prefill"][1][1], cspec, mesh, coord)}
+        kind = "int8" if arch == "yi_6b" else "gspmd"
+        out.append({**base, "kind": f"prefill_{kind}", "layout": over if kind == "gspmd" else
+                    {"int8_serve": True}, "tokens": [Bp, Sp], "ms": ms,
+                    "one_rank_ms": ref["ms"]["lay_prefill"], "rel_diffs": diffs,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "ok": max(diffs.values()) <= LM_RANK_LOGITS_TOL})
+        del logits, k, v
+        if arch == "yi_6b":
+            cell = cells.build_cell(arch, "decode_32k", mesh, cfg=c,
+                                    shape=LMShape("decode_32k", Td, Bd, "decode"))
+            _, (cspec, _), tspec, pspec_ = cell.in_specs
+            fill = _fill_as([_cut_block(x, cspec, mesh, coord) for x in ref["decode_fill"]],
+                            cfg.dtype, "cuda")
+            pos = cut(np.array(LM_RANK_DECODE_POS, np.int64), pspec_)
+            tokens = cut(ins["decode"][:LM_RANK_INT8_STEPS], P(None, *tspec))
+            torch.cuda.reset_peak_memory_stats()
+            logits, ms, cache = _lm_decode_run(cell.fn, params, fill, tokens, pos)
+            lspec = P(None, *cell.out_specs[0])
+            diffs = {"logits": _rel_block(torch.stack(logits), ref["lay_decode"][0], lspec, mesh,
+                                          coord),
+                     "k": _rel_block(cache[0], ref["lay_decode"][1][0], cspec, mesh, coord),
+                     "v": _rel_block(cache[1], ref["lay_decode"][1][1], cspec, mesh, coord)}
+            out.append({**base, "kind": "decode_int8", "layout": {"int8_serve": True},
+                        "batch": Bd, "cache": Td, "steps": len(ms),
+                        "first_pos": list(LM_RANK_DECODE_POS), "ms": float(np.median(ms[1:])),
+                        "ms_each": ms, "one_rank_ms": ref["ms"]["lay_decode"],
+                        "rel_diffs": diffs, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "ok": max(diffs.values()) <= LM_RANK_LOGITS_TOL
+                        and all(bool(torch.isfinite(x).all()) for x in logits)})
+            del fill, cache, logits
+        del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_step_vs_one(before, after, one_whole, specs, mesh, coord) -> dict:
+    """A rank's updated params against its blocks of the one-rank step's
+    (`one_whole`, on the host), by phase 5's rule for an AdamW-type first
+    step: each weight within 2·lr of the one-rank step's beyond the
+    rounding of the result in the weight's dtype (at most eps·(|w| + lr),
+    eps the dtype's: a bf16 weight's ulp exceeds lr), and at most
+    `TRAIN_ADAM_SHARE` of them further apart than `TRAIN_ADAM_ATOL`."""
+    excess, n, n_far, worst = 0.0, 0, 0, 0.0
+    for (path, b), (_, a) in zip(tree_leaves(before), tree_leaves(after)):
+        h = _cut_block(_leaf(one_whole, path), _leaf(specs, path), mesh, coord).to(a.device)
+        h = h.float()
+        d = (a.float() - h).abs()
+        rounding = torch.finfo(a.dtype).eps * (b.float().abs() + RANK_LR)
+        excess = max(excess, float((d - rounding).max()))
+        worst = max(worst, float(d.max()))
+        n, n_far = n + d.numel(), n_far + int((d > TRAIN_ADAM_ATOL).sum())
+        del h, d, rounding
+    return {"param_max_abs_diff": worst, "param_excess_max": excess,
+            "params_off_share": n_far / n}
 
 
 def _lm_decode_kinds(cfg):
@@ -2977,8 +3290,10 @@ def _lm_rank_cases(arch: str, mesh, root: Path) -> list:
                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
             out[-1]["ok"] = out[-1]["finite"] and (not held or max(diffs.values()) <= tol)
             del fill, cache, logits, p
-    del params, blocks, ref
+    del params, blocks
     torch.cuda.empty_cache()
+    out += _lm_layout_cases(arch, cfg, mesh, root, ref, ins, base)
+    del ref
     return out
 
 
@@ -3059,7 +3374,10 @@ def phase_lm_ranks() -> dict:
     emit({"phase": "lm_ranks", "part": "done", "launches": launches,
           "cuts": {"n_layers": LM_RANK_LAYERS, "train_tokens": list(LM_RANK_TRAIN),
                    "prefill_tokens": list(LM_RANK_PREFILL), "decode": list(LM_RANK_DECODE),
-                   "long": list(LM_RANK_LONG), "olmoe_capacity_factor": LM_RANK_CAPACITY},
+                   "long": list(LM_RANK_LONG), "olmoe_capacity_factor": LM_RANK_CAPACITY,
+                   "layout_train_tokens": list(LM_RANK_LAYOUT_TRAIN),
+                   "layout_prefill_tokens": list(LM_RANK_LAYOUT_PREFILL),
+                   "int8_decode_steps": LM_RANK_INT8_STEPS},
           "seconds": time.perf_counter() - t0})
     if any(launches.values()):
         raise AssertionError(f"the LM path launched kernels: {launches}")

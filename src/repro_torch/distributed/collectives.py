@@ -13,9 +13,16 @@ each is an autograd Function with the backward that its layout asks for:
                               transpose, the all-gather, backward
   gather_spec(t, spec, mesh)  a block laid out by a PartitionSpec made
                               whole: `gather` along each dim it splits
-  psum(t, groups)             `sum_forward` summed in f32, back in t's dtype
+  psum(t, groups, partials)   `sum_forward` summed in f32, back in t's dtype;
+                              with `partials`, the gradient summed too
   scale_grad(t, s)            identity forward, the gradient times s backward
-  tp_matmul(x, w, spec, mesh) x @ w on a row- or column-parallel block of w
+  sum_grad_outside(t, spec, mesh, axes)
+                              `sum_grad` over the dims that spec leaves out
+  over_copies(fn, x, mesh, axes)
+                              fn(x) on ranks that hold x alike, each copy
+                              counted 1/n
+  tp_matmul(x, w, spec, mesh, partials)
+                              x @ w on a row- or column-parallel block of w
 
 `sum_forward` and `sum_grad` are a conjugate pair. `sum_forward` turns
 partial sums that every rank of a group holds into the whole, replicated
@@ -25,6 +32,14 @@ summed again. `sum_grad` marks a leaf that the group's ranks use alike on
 different data: each forms a part of its gradient, and the parts are
 summed. (`all_reduce` is shard_map's convention instead: every rank's
 output is counted once in the loss, so the gradient is summed too.)
+
+The two conventions are those of a value that a group's ranks hold alike.
+Megatron's ("replicated"): each rank holds the whole gradient of it, and
+a rank that uses only a block of it (a column block of the weights, a
+slice of x) marks it with `sum_grad` first, so that its part of the
+gradient is summed back into the whole. shard_map's ("partials"): each
+rank holds only its part of the gradient, the whole is their sum, and a
+sum over the group sums the gradient too (`psum(..., partials=True)`).
 
 gloo's collectives take CPU tensors and, for the all-gather and
 reduce-scatter, a flat [n·d0, ...] buffer ([n, d0, ...] fails). They take
@@ -38,12 +53,13 @@ on the card.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import axes_index, entry_axes, mesh_groups
+from repro_torch.distributed.sharding import axes_index, entry_axes, mesh_axis_names, mesh_groups
 
 
 def through_host(t: torch.Tensor, group) -> bool:
@@ -172,6 +188,24 @@ class _SumForward(torch.autograd.Function):
         return grad, None
 
 
+def _sum_f32(t: torch.Tensor, groups) -> torch.Tensor:
+    out = t.float().clone(memory_format=torch.contiguous_format)
+    for g in groups:
+        sum_in_place(out, g)
+    return out.to(t.dtype)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return _sum_f32(t, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_f32(grad, ctx.groups), None
+
+
 class _ScaleGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, s):
@@ -255,11 +289,16 @@ def gather_spec(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     return t
 
 
-def psum(t: torch.Tensor, groups: Sequence) -> torch.Tensor:
+def psum(t: torch.Tensor, groups: Sequence, partials: bool = False) -> torch.Tensor:
     """`sum_forward` of partial products: summed in f32 and cast back, so
-    that a bf16 partial sum rounds once, as the whole product does."""
+    that a bf16 partial sum rounds once, as the whole product does. With
+    `partials` (shard_map's convention, module docstring) the gradient
+    that reaches each rank is its part only, and the backward sums the
+    parts the same way."""
     if not groups:
         return t
+    if partials:
+        return _PSum.apply(t, tuple(groups))
     return sum_forward(t.float(), groups).to(t.dtype)
 
 
@@ -271,19 +310,54 @@ def scale_grad(t: torch.Tensor, s: float) -> torch.Tensor:
     return _ScaleGrad.apply(t, s) if s != 1 else t
 
 
-def tp_matmul(x: torch.Tensor, w: torch.Tensor, spec, mesh) -> torch.Tensor:
+def sum_grad_outside(t: torch.Tensor, spec, mesh, axes=None) -> torch.Tensor:
+    """`sum_grad` over the mesh dims of `axes` (by default all of the
+    mesh's) that `spec` leaves out: `t` is a block under `spec` that the
+    ranks of those dims hold alike and use each on its own data, so that
+    each forms a part of its gradient."""
+    named = {a for e in spec for a in entry_axes(e)}
+    axes = mesh_axis_names(mesh) if axes is None else axes
+    return sum_grad(t, mesh_groups(mesh, [a for a in axes if a not in named]))
+
+
+def over_copies(fn, x: torch.Tensor, mesh, axes):
+    """`fn(x)`, which returns (out, *rest), on ranks that hold the same x
+    over the mesh dims `axes`, where fn's backward is shard_map's (each
+    rank returns its part of x's gradient): each copy counts 1/n of out's
+    gradient, and x's gradient is summed over the n copies, so that every
+    rank returns the whole of it, as Megatron's convention wants."""
+    out, *rest = fn(sum_grad(x, mesh_groups(mesh, axes)))
+    n = math.prod(mesh.size(mesh_axis_names(mesh).index(a)) for a in axes)
+    return (scale_grad(out, 1.0 / n), *rest)
+
+
+def tp_matmul(x: torch.Tensor, w: torch.Tensor, spec, mesh, partials: bool = False
+              ) -> torch.Tensor:
     """x @ w, w [N_in, N_out] this rank's block under `spec` on `mesh`
     (Megatron's tensor parallelism). Where `spec` splits w's rows
     (row-parallel), x is taken at the same block of its last dim, unless it
     holds just that block already (a column-parallel product's output),
     and the partial products are summed over those mesh dims (`psum`);
     where it splits the columns (column-parallel), the result is this
-    rank's block of them."""
+    rank's block of them.
+
+    The backward follows the module docstring's conventions: by default
+    Megatron's, where x is the same on the ranks of the dims that split w:
+    where a rank uses all of x (column-parallel) or a slice of it, x's
+    gradient is summed over those dims (Megatron's f, `sum_grad`), and the
+    sum of the partial products passes the gradient as it is (its g). With
+    `partials`, shard_map's: x's gradient stays this rank's part, and the
+    sum sums the gradient too."""
     rows = entry_axes(spec[0]) if len(spec) else ()
     if not rows:
+        if not partials:
+            x = sum_grad(x, mesh_groups(mesh, entry_axes(spec[1]) if len(spec) > 1 else ()))
         return torch.matmul(x, w)
     index, _ = axes_index(mesh, rows)
+    groups = mesh_groups(mesh, rows)
     n = w.shape[0]
     if x.shape[-1] != n:
+        if not partials:
+            x = sum_grad(x, groups)
         x = x[..., index * n:(index + 1) * n]
-    return psum(torch.matmul(x, w), mesh_groups(mesh, rows))
+    return psum(torch.matmul(x, w), groups, partials)

@@ -251,64 +251,90 @@ def moe_ffn_ep(x, layer_params, cfg, stats=None, *, mesh=None,
     return out.reshape(B, S, D), aux
 
 
-def moe_ffn_tp(x, layer_params, cfg, stats=None, *, mesh, rules,
-               w_specs) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`models.moe.moe_ffn` (decode's dispatcher) across the ranks of `mesh`
-    on the serving layout, whole expert stacks never gathered. x: [B, S,
-    D], this rank's block of the batch under `rules["batch"]`, the same on
-    the ranks of every other mesh dim; `layer_params` this rank's blocks
-    under `w_specs` (one layer's slice of `param_pspecs(..., serve=True)`:
-    the experts over "model", w_gate's and w_up's D and w_down's F over
-    "data", a shared expert column- then row-parallel over "model").
+def moe_ffn_tp(x, layer_params, cfg, stats=None, *, mesh, rules, w_specs,
+               seq: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`models.moe.moe_ffn` on the whole batch, across the ranks of `mesh`,
+    whole expert stacks never gathered: decode's dispatcher, and train's
+    and prefill's under `moe_impl="gspmd"`. x: [B, S, D], this rank's block
+    of the tokens: of the batch under `rules["batch"]` and, with `seq`, of
+    the sequence under `rules["seq"]`; the same on the ranks of every
+    other mesh dim. `layer_params` are this rank's blocks under `w_specs`
+    (one layer's slice of `param_pspecs`: the serving layout, with the
+    experts over "model", w_gate's and w_up's D and w_down's F over "data",
+    a shared expert column- then row-parallel over "model"; or training's
+    "fsdp" one, the same but for the dp dims in place of "data" and a
+    shared expert's first dim over them).
 
-    The tokens are gathered over the batch's mesh dims, so that routing,
+    The tokens are gathered over the dims that split them, so that routing,
     capacity and drops are `moe_ffn`'s on the whole batch, computed alike
     on every rank. Each rank runs its own experts' queues: gate and up
     products over its block of D, summed over the dims that split D (each
     rank then holds the whole [E_loc, C, F] hidden), the down product over
     its block of F, a partial sum. The combine's partial outputs are summed
     over the dims that split the experts and F, a shared expert's over its
-    own; this rank keeps its block of the batch. Returns (out block, aux);
-    aux is the whole batch's, as `moe_ffn`'s. No gradient is formed here:
-    decode has none."""
+    own; this rank keeps its block of the tokens. Returns (out block, aux);
+    aux is the whole batch's, as `moe_ffn`'s, the same on every rank.
+
+    The backward is shard_map's ("partials", `collectives`' docstring):
+    each rank forms its part of every gradient from its block of the
+    output's, the sums sum the gradient, the token gathers reduce-scatter
+    it, and each weight's part is summed over the mesh dims its spec leaves
+    out (the router's over all). Where ranks hold the same tokens (dims
+    that split neither batch nor sequence), each counts 1/n of its output's
+    gradient and x's gradient is summed over them, so that they return the
+    whole of it, as the callers' Megatron layout wants. aux's gradient is
+    each rank's part (the loss weights it 1/n on each of n ranks)."""
+    batch_axes = entry_axes(rules.get("batch"))
+    seq_axes = entry_axes(rules.get("seq")) if seq else ()
+    same = [a for a in mesh_axis_names(mesh) if a not in batch_axes + seq_axes]
+    return collectives.over_copies(
+        lambda t: _moe_ffn_tp(t, layer_params, cfg, stats, mesh, w_specs, batch_axes, seq_axes),
+        x, mesh, same)
+
+
+def _moe_ffn_tp(x, layer_params, cfg, stats, mesh, w_specs, batch_axes, seq_axes):
+    """`moe_ffn_tp` on ranks that each hold their own tokens."""
     B, S, D = x.shape
-    batch_groups = mesh_groups(mesh, entry_axes(rules.get("batch")))
-    for g in reversed(batch_groups):
+    for g in reversed(mesh_groups(mesh, seq_axes)):
+        x = collectives.gather(x, 1, g)
+    for g in reversed(mesh_groups(mesh, batch_axes)):
         x = collectives.gather(x, 0, g)
     xt = x.reshape(-1, D)
-    buffer, entry_slot, gate, aux = moe_lib.dispatch(xt, layer_params["router"], cfg, stats)
+    p = {k: collectives.sum_grad_outside(v, w_specs[k], mesh) for k, v in layer_params.items()}
+    buffer, entry_slot, gate, aux = moe_lib.dispatch(xt, p["router"], cfg, stats)
 
     E = cfg.n_experts
     spec_in, spec_out = w_specs["w_gate"], w_specs["w_down"]
     e_axes = entry_axes(spec_in[0])
     e_idx, e_ways = axes_index(mesh, e_axes)
     E_loc = E // e_ways
+    C = buffer.shape[1]
     buf = buffer[e_idx * E_loc:(e_idx + 1) * E_loc]  # [E_loc, C, D]
     d_axes = entry_axes(spec_in[1]) if len(spec_in) > 1 else ()
     d_idx, d_ways = axes_index(mesh, d_axes)
     Db = D // d_ways
     buf = buf[..., d_idx * Db:(d_idx + 1) * Db]
     d_groups = mesh_groups(mesh, d_axes)
-    g = collectives.psum(torch.einsum("ecd,edf->ecf", buf, layer_params["w_gate"]), d_groups)
-    u = collectives.psum(torch.einsum("ecd,edf->ecf", buf, layer_params["w_up"]), d_groups)
+    g = collectives.psum(torch.einsum("ecd,edf->ecf", buf, p["w_gate"]), d_groups, True)
+    u = collectives.psum(torch.einsum("ecd,edf->ecf", buf, p["w_up"]), d_groups, True)
     h = F.silu(g.float()).to(buf.dtype) * u  # [E_loc, C, F]
     f_axes = entry_axes(spec_out[1]) if len(spec_out) > 1 else ()
     f_idx, f_ways = axes_index(mesh, f_axes)
     Fb = h.shape[-1] // f_ways
     part = torch.einsum("ecf,efd->ecd", h[..., f_idx * Fb:(f_idx + 1) * Fb],
-                        layer_params["w_down"])  # [E_loc, C, D], a partial sum over F
-    out_buf = part.new_zeros((E,) + tuple(part.shape[1:]))
-    out_buf[e_idx * E_loc:(e_idx + 1) * E_loc] = part
-    out = combine(out_buf.reshape(-1, D), entry_slot, gate)
-    out = collectives.psum(out, mesh_groups(mesh, e_axes + f_axes))
+                        p["w_down"])  # [E_loc, C, D], a partial sum over F
+    # this rank's experts' rows of the flattened buffer; other entries read zeros
+    local = entry_slot - e_idx * E_loc * C
+    local = torch.where((entry_slot >= 0) & (local >= 0) & (local < E_loc * C), local, -1)
+    out = combine(part.reshape(-1, D), local, gate)
+    out = collectives.psum(out, mesh_groups(mesh, e_axes + f_axes), True)
 
-    if "shared_gate" in layer_params:
-        hs = F.silu(collectives.tp_matmul(xt, layer_params["shared_gate"], w_specs["shared_gate"],
-                                          mesh).float()).to(xt.dtype)
-        hs = hs * collectives.tp_matmul(xt, layer_params["shared_up"], w_specs["shared_up"], mesh)
-        out = out + collectives.tp_matmul(hs, layer_params["shared_down"],
-                                          w_specs["shared_down"], mesh)
+    if "shared_gate" in p:
+        mm = lambda t, k: collectives.tp_matmul(t, p[k], w_specs[k], mesh, True)  # noqa: E731
+        hs = F.silu(mm(xt, "shared_gate").float()).to(xt.dtype) * mm(xt, "shared_up")
+        out = out + mm(hs, "shared_down")
 
-    b_idx, _ = axes_index(mesh, entry_axes(rules.get("batch")))
-    out = out.reshape(-1, S, D)[b_idx * B:(b_idx + 1) * B]
+    b_idx, _ = axes_index(mesh, batch_axes)
+    s_idx, _ = axes_index(mesh, seq_axes)
+    out = out.reshape(-1, x.shape[1], D)[b_idx * B:(b_idx + 1) * B, s_idx * S:(s_idx + 1) * S]
     return out, aux

@@ -15,9 +15,9 @@ across the ranks of a `DeviceMesh` (the row-split lookup, the global-batch
 loss, the train step's sums), and so does an LM cell's (the transformer
 split by `rules`: FSDP weights and context-parallel attention in the
 train step and prefill, tensor parallelism and split-K attention in
-decode; `models/transformer`'s docstring), except under
-`train_layout="tp"` or `int8_serve`, which refuse more than one rank, and
-so does a GNN cell's (NequIP split by nodes and edges over the node dims:
+decode; `train_layout="tp"`'s Megatron products, `int8_serve`'s int8
+blocks and `moe_impl="gspmd"`'s whole-batch dispatch too:
+`models/transformer`'s docstring), and so does a GNN cell's (NequIP split by nodes and edges over the node dims:
 `models/gnn/nequip`'s docstring). The long-context decode layout (batch 1,
 the cache split over "long_kv_seq") is the long_500k shape's, or any
 decode of 100,000 positions or more, as in `repro`; a `shape=` named
@@ -67,38 +67,6 @@ def _meta(shape, dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _int8_lm_defs(defs):
-    """C5 on the LM serve path: 2-D+ weight matrices -> int8 {"q","s"}
-    (per-out-channel scales); embedding/lm_head -> per-row scales. Norms and
-    biases stay fp. Abstract analogue of core/quantization for the dry-run."""
-
-    def visit(path, d):
-        if not is_def(d):
-            return {k: visit(path + (k,), v) for k, v in d.items()}
-        if len(d.shape) < 2 or d.dtype == torch.int8:
-            return d
-        name = path[-1] if path else ""
-        if "moe" in path:  # MoE expert einsums keep bf16 (EP path)
-            return d
-        if name.startswith(("attn_norm", "ffn_norm", "b")) or "norm" in name:
-            return d
-        if name in ("embed", "lm_head"):
-            scale_axes = (d.mode_axes(True)[0],)
-            scale_shape = (d.shape[0],)
-        else:
-            scale_axes = (None,)
-            scale_shape = (d.shape[-1],)
-            if len(d.shape) == 3:  # layer-stacked: per (layer, out_channel)
-                scale_shape = (d.shape[0], d.shape[-1])
-                scale_axes = (d.mode_axes(True)[0], None)
-        return {
-            "q": ParamDef(d.shape, torch.int8, "zeros", axes=d.axes, serve_axes=d.serve_axes),
-            "s": ParamDef(scale_shape, torch.float32, "ones", axes=scale_axes),
-        }
-
-    return visit((), defs)
-
-
 def _lm_cell(cfg: LMConfig, shape: LMShape, mesh, rules, optimizer: str,
              accum: int = 1) -> Cell:
     B, S = shape.global_batch, shape.seq_len
@@ -133,7 +101,7 @@ def _lm_cell(cfg: LMConfig, shape: LMShape, mesh, rules, optimizer: str,
         )
 
     if cfg.int8_serve:
-        defs = _int8_lm_defs(defs)
+        defs = tf.int8_param_defs(defs)
     params = abstract_params(defs)
     p_specs = param_pspecs(defs, rules, serve=True)
 

@@ -40,9 +40,27 @@ collectives):
   (`layers.split_decode_attention`); MoE layers take `moe_ffn_tp`; the
   embedding is looked up in each rank's vocabulary block and summed, and
   the logits are gathered over the vocabulary's blocks.
+- train under `train_layout="tp"` (`repro`'s Megatron experiment: the
+  serving layout's weights, `rules["seq"]` None): the tokens split by
+  batch only, every rank of "model" holding the same ones; each layer's
+  products are decode's row- and column-parallel ones on the rank's
+  blocks, never gathered, with Megatron's backward (`tp_matmul`: x's
+  gradient summed over the dims that split the weight); the lookup is
+  vocabulary-split, as decode's, and so is the cross entropy
+  (`_Split.cross_entropy`: maxima and sums combined over the vocabulary's
+  dims, no [B,S,V] logits gathered).
+- `int8_serve` (prefill, decode, long-context decode): a rank holds its
+  block of each int8 `q`; per-out-channel scales are whole on every rank,
+  a column-parallel block taking its columns of them; an int8 table's
+  per-row scales are split with its rows and its rows dequantized after
+  the gather; the bf16 dequantization is `repro`'s bits (`_dequant`).
+- MoE under `moe_impl="gspmd"` in train and prefill: `moe_ffn_tp`, the
+  whole batch's `moe_ffn` (routing, capacity, drops and aux over the
+  whole batch, not `moe_ffn_ep`'s per-shard ones), on the experts' blocks
+  in the layout the cell gives them.
 A mesh of one rank, or no rules, is the plain path, op for op (the mesh
 still reaches `moe_ffn_ep`, whose collectives over one rank give back
-their inputs). `train_layout="tp"` and `int8_serve` run on one rank only.
+their inputs).
 
 `cfg.remat` recomputes each layer in the backward (`torch.utils.checkpoint`,
 non-reentrant), as `repro`'s `jax.checkpoint` of its scan body: memory,
@@ -86,13 +104,19 @@ def _dtype(cfg: LMConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def _dequant(w, dtype, s=None):
+    """C5 int8 {"q": int8 [din,dout], "s": f32 [dout]} dequantized in bf16
+    (as `repro`), then cast to `dtype`; `s` in place of w["s"] (the
+    columns of a block)."""
+    s = w["s"] if s is None else s
+    return (w["q"].to(torch.bfloat16) * s.to(torch.bfloat16)[None, :]).to(dtype)
+
+
 def _mm(x, w):
     """Representation-dispatched matmul over the last axis of x: a dense
-    tensor, or C5 int8 {"q": int8 [din,dout], "s": f32 [dout]}, dequantized
-    in bf16 (as `repro`) before the product."""
+    tensor, or C5 int8 {"q","s"} (`_dequant`) before the product."""
     if isinstance(w, dict):
-        deq = w["q"].to(torch.bfloat16) * w["s"].to(torch.bfloat16)[None, :]
-        return torch.matmul(x, deq.to(x.dtype))
+        return torch.matmul(x, _dequant(w, x.dtype))
     return torch.matmul(x, w)
 
 
@@ -184,6 +208,40 @@ def param_defs(cfg: LMConfig) -> Dict:
     return defs
 
 
+def int8_param_defs(defs):
+    """C5 on the LM serve path (`repro.launch.cells._int8_lm_defs`): 2-D+
+    weight matrices -> int8 {"q","s"} (per-out-channel scales, whole on
+    every rank: [dout], or [L, dout] layer-stacked); embedding/lm_head ->
+    per-row scales, split with the rows. Norms, biases and the MoE experts
+    stay as they are."""
+
+    def visit(path, d):
+        if not isinstance(d, ParamDef):
+            return {k: visit(path + (k,), v) for k, v in d.items()}
+        if len(d.shape) < 2 or d.dtype == torch.int8:
+            return d
+        name = path[-1] if path else ""
+        if "moe" in path:  # MoE expert einsums keep bf16 (EP path)
+            return d
+        if name.startswith(("attn_norm", "ffn_norm", "b")) or "norm" in name:
+            return d
+        if name in ("embed", "lm_head"):
+            scale_axes = (d.mode_axes(True)[0],)
+            scale_shape = (d.shape[0],)
+        else:
+            scale_axes = (None,)
+            scale_shape = (d.shape[-1],)
+            if len(d.shape) == 3:  # layer-stacked: per (layer, out_channel)
+                scale_shape = (d.shape[0], d.shape[-1])
+                scale_axes = (d.mode_axes(True)[0], None)
+        return {
+            "q": ParamDef(d.shape, torch.int8, "zeros", axes=d.axes, serve_axes=d.serve_axes),
+            "s": ParamDef(scale_shape, torch.float32, "ones", axes=scale_axes),
+        }
+
+    return visit((), defs)
+
+
 # ---------------------------------------------------------------------------
 # The layout across ranks
 # ---------------------------------------------------------------------------
@@ -206,13 +264,20 @@ def _kv_rule(rules) -> str:
 class _Split:
     """One call's layout across the ranks of `rules["__mesh__"]` (see the
     module's docstring): the params' PartitionSpecs in the call's layout
-    (training's "fsdp" one, or `serve`'s), stacked and one layer's slice
-    ("layers" replicates, so a slice's spec drops that entry)."""
+    (training's "fsdp" one, or the serving one for `serve` and under
+    `train_layout="tp"`; an int8 leaf's {"q","s"} under `int8_serve`),
+    stacked and one layer's slice ("layers" replicates, so a slice's spec
+    drops that entry). `megatron`: the train step under
+    `train_layout="tp"`, whose weights stay the rank's blocks."""
 
     def __init__(self, cfg: LMConfig, rules, serve: bool):
         self.mesh, self.rules = rules["__mesh__"], rules
-        self.specs = param_pspecs(param_defs(cfg), rules, serve=serve)
-        self.layer = {k: {n: P(*spec[1:]) for n, spec in self.specs[k].items()}
+        self.megatron = not serve and cfg.train_layout == "tp"
+        defs = param_defs(cfg)
+        if serve and cfg.int8_serve:
+            defs = int8_param_defs(defs)
+        self.specs = param_pspecs(defs, rules, serve=serve or self.megatron)
+        self.layer = {k: tree_map(lambda spec: P(*spec[1:]), self.specs[k])
                       for k in ("attn", "ffn", "moe") if k in self.specs}
         self.token_axes = entry_axes(rules.get("batch")) + entry_axes(rules.get("seq"))
 
@@ -229,35 +294,69 @@ class _Split:
             t = collectives.gather(t, dim, g)
         return t
 
-    def weight(self, t: torch.Tensor, spec) -> torch.Tensor:
+    def local(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's block under `spec`, used as it is; backward, its
+        gradient summed over the dims that split the tokens and not the
+        leaf (each of those ranks forms a part of it)."""
+        return collectives.sum_grad_outside(t, spec, self.mesh, self.token_axes)
+
+    def weight(self, t, spec):
         """The whole leaf from this rank's block under `spec`; backward, the
         whole batch's gradient: reduce-scattered over the dims that split
-        the leaf, summed over the other dims that split the tokens."""
-        axes = {a for e in spec for a in entry_axes(e)}
-        t = collectives.sum_grad(t, self.groups([a for a in self.token_axes if a not in axes]))
-        return collectives.gather_spec(t, spec, self.mesh)
+        the leaf, summed over the other dims that split the tokens. An int8
+        {"q","s"} leaf (serving: no gradient) gathers each part."""
+        if isinstance(t, dict):
+            return {k: collectives.gather_spec(v, spec[k], self.mesh) for k, v in t.items()}
+        return collectives.gather_spec(self.local(t, spec), spec, self.mesh)
 
     def weights(self, tree, specs):
         return {k: self.weight(v, specs[k]) for k, v in tree.items()}
+
+    def locals(self, tree, specs):
+        return {k: self.local(v, specs[k]) for k, v in tree.items()}
 
     def table(self, params):
         """(the output table's block, its spec)."""
         name = "lm_head" if "lm_head" in params else "embed"
         return params[name], self.specs[name]
 
+    def dense(self, w, spec, dtype):
+        """(the dense block, its spec) of a weight block: an int8 {"q","s"}
+        one dequantized (`_dequant`) with its columns of the whole
+        per-out-channel scales where `spec` splits its columns; the scales
+        stay whole where it splits the rows."""
+        if not isinstance(w, dict):
+            return w, spec
+        spec = spec["q"]
+        index, _ = axes_index(self.mesh, entry_axes(spec[1]) if len(spec) > 1 else ())
+        n = w["q"].shape[1]
+        return _dequant(w, dtype, w["s"][index * n:(index + 1) * n]), spec
+
     def tp(self, p, group: str):
         """x @ p[name] on this rank's block of a serving-layout weight of
-        one layer (`collectives.tp_matmul`), as `mm(x, name)`."""
+        one layer (`collectives.tp_matmul`: Megatron's f and g), as
+        `mm(x, name)`; an int8 block dequantized first (`dense`)."""
         specs = self.layer[group]
-        return lambda x, name: collectives.tp_matmul(x, p[name], specs[name], self.mesh)
+
+        def mm(x, name):
+            w, spec = self.dense(p[name], specs[name], x.dtype)
+            return collectives.tp_matmul(x, w, spec, self.mesh)
+        return mm
+
+    def vocab_axes(self, spec):
+        """The mesh dims that split a table's rows under `spec` (an int8
+        table's: its codes')."""
+        spec = spec["q"] if isinstance(spec, dict) else spec
+        return entry_axes(spec[0]) if len(spec) else ()
 
     def lookup(self, table, ids):
         """Rows of a table split by rows (the vocabulary): each rank takes
         the ids in its block, zeros for the rest, summed over the dims that
-        split it. Every rank of those dims must hold the same ids."""
-        axes = entry_axes(self.specs["embed"][0])
+        split it. Every rank of those dims must hold the same ids. An int8
+        table's rows are dequantized after the gather (`_take_rows`)."""
+        axes = self.vocab_axes(self.specs["embed"])
         index, _ = axes_index(self.mesh, axes)
-        n = table.shape[0]
+        n = (table["q"] if isinstance(table, dict) else table).shape[0]
         local = ids - index * n
         inside = (local >= 0) & (local < n)
         rows = _take_rows(table, torch.clamp(local, 0, n - 1))
@@ -269,7 +368,29 @@ class _Split:
         """`_logits` of x [B,S,D] against this rank's block of the output
         table's rows, gathered over the dims that split them: [B,S,V]."""
         table, spec = self.table(params)
-        return self.gather(_logits(x, table), 2, entry_axes(spec[0]) if len(spec) else ())
+        return self.gather(_logits(x, table), 2, self.vocab_axes(spec))
+
+    def cross_entropy(self, x, params, labels):
+        """Each token's CE [B,S] against this rank's block of the output
+        table's rows (Megatron's vocabulary-parallel CE), the same on the
+        ranks of the dims that split them: each rank streams its rows
+        (`_streamed_ce`), and the maxima, sums and picked logits are
+        combined over those dims. x's gradient is summed over them (each
+        rank's part comes from its rows); the shared max is a shift,
+        outside the gradient."""
+        table, spec = self.table(params)
+        table = self.local(table, spec)
+        axes = self.vocab_axes(spec)
+        groups = self.groups(axes)
+        index, _ = axes_index(self.mesh, axes)
+        x = collectives.sum_grad(x, groups)
+        m, l, dot = _streamed_ce(x, table, labels.long() - index * table.shape[0])  # noqa: E741
+        top = m.detach().clone()
+        for g in groups:
+            collectives.max_in_place(top, g)
+        l = collectives.sum_forward(l * torch.exp(m - top), groups)  # noqa: E741
+        dot = collectives.sum_forward(dot, groups)
+        return (top + torch.log(torch.clamp(l, min=1e-30))) - dot
 
 
 def _split_of(cfg: LMConfig, rules, serve: bool):
@@ -277,14 +398,6 @@ def _split_of(cfg: LMConfig, rules, serve: bool):
     mesh = _mesh(rules)
     if mesh is None or mesh.size() == 1:
         return None
-    where = f"{cfg.name} on a mesh of {mesh.size()} ranks"
-    if not serve and cfg.train_layout != "fsdp":
-        raise ValueError(f"train_layout={cfg.train_layout!r} runs on a mesh of one rank; "
-                         f"{where}: its Megatron weights inside the train step are not "
-                         "split across ranks yet (train_layout='fsdp' is)")
-    if serve and cfg.int8_serve:
-        raise ValueError(f"int8_serve runs on a mesh of one rank; {where}: its int8 "
-                         "row-parallel products are not split across ranks yet")
     return _Split(cfg, rules, serve)
 
 
@@ -313,18 +426,19 @@ def _project_qkv(x, p, cfg: LMConfig, positions, mm=None):
     return q.reshape(B, S, K, G, hd), k, v
 
 
-def _attention_train(x, p, cfg: LMConfig, split=None):
+def _attention_train(x, p, cfg: LMConfig, split=None, mm=None):
     """Full-sequence attention (train/prefill). Returns (attn_out, (k, v)),
     k and v this rank's block of the sequence. Across ranks the queries are
     the rank's block of the sequence, at global positions from `q_offset`,
-    and K, V are gathered whole over the dims that split it."""
+    and K, V are gathered whole over the dims that split it. `mm(x, name)`
+    takes the products where given (`train_layout="tp"`: row-parallel)."""
     B, S, D = x.shape
     q_offset = 0
     positions = torch.arange(S, device=x.device).expand(B, S)
     if split is not None:
         q_offset = split.index("seq")[0] * S
         positions = positions + q_offset
-    q, k, v = _project_qkv(x, p, cfg, positions)
+    q, k, v = _project_qkv(x, p, cfg, positions, mm)
     kv = (k, v)
     if split is not None:
         seq = entry_axes(split.rules.get("seq"))
@@ -335,7 +449,7 @@ def _attention_train(x, p, cfg: LMConfig, split=None):
         out = flash_attention(q, k, v, causal=True, kv_chunk=cfg.q_chunk, q_offset=q_offset,
                               remat_step=cfg.flash_remat)
     out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
-    return _mm(out, p["wo"]), kv
+    return (mm(out, "wo") if mm is not None else _mm(out, p["wo"])), kv
 
 
 def _attention_decode(x, p, cfg: LMConfig, k_cache, v_cache, pos):
@@ -398,14 +512,22 @@ def _layer(x, attn_p, ffn_p, moe_p, cfg: LMConfig, decode_state=None, stats=None
     """One transformer layer. decode_state: None | (k_cache, v_cache, pos).
     `stats` collects the MoE dispatch's record (see `prefill`); `mesh`
     reaches the expert-parallel dispatch (see `trunk`). `split` (train and
-    prefill across ranks) gathers the layer's weights whole first."""
-    if split is not None:
+    prefill across ranks) gathers the layer's weights whole first, or under
+    `train_layout="tp"` uses its blocks in Megatron's products."""
+    mm_attn = mm_ffn = None
+    if split is not None and split.megatron:
+        attn_p = split.locals(attn_p, split.layer["attn"])
+        mm_attn = split.tp(attn_p, "attn")
+        if ffn_p is not None:
+            ffn_p = split.locals(ffn_p, split.layer["ffn"])
+            mm_ffn = split.tp(ffn_p, "ffn")
+    elif split is not None:
         attn_p = split.weights(attn_p, split.layer["attn"])
         if ffn_p is not None:
             ffn_p = split.weights(ffn_p, split.layer["ffn"])
     h = apply_norm(x, attn_p["attn_norm"], cfg.norm_type)
     if decode_state is None:
-        attn_out, kv = _attention_train(h, attn_p, cfg, split)
+        attn_out, kv = _attention_train(h, attn_p, cfg, split, mm_attn)
     else:
         attn_out, kv = _attention_decode(h, attn_p, cfg, *decode_state)
 
@@ -414,26 +536,37 @@ def _layer(x, attn_p, ffn_p, moe_p, cfg: LMConfig, decode_state=None, stats=None
         # command-r: shared-norm parallel attention + FFN
         if moe_p is not None:
             raise ValueError("parallel_block with MoE is used by no LM arch")
-        x = x + attn_out + _ffn_dense(h, ffn_p)
+        x = x + attn_out + _ffn_dense(h, ffn_p, mm_ffn)
     else:
         x = x + attn_out
         h2 = apply_norm(x, attn_p["ffn_norm"], cfg.norm_type)
         if moe_p is not None:
-            # decode (tiny token counts) takes the plain dispatcher; train
-            # and prefill the expert-parallel one, as `repro`
-            if cfg.moe_impl == "ep" and decode_state is None:
-                ffn_out, aux = moe_ffn_ep(h2, moe_p, cfg, stats, mesh=mesh,
-                                          w_specs=None if split is None else split.layer["moe"])
-            elif split is not None:
-                raise ValueError(f"moe_impl={cfg.moe_impl!r} dispatches the whole batch at once "
-                                 "and runs on a mesh of one rank; across ranks train and "
-                                 "prefill take moe_impl='ep'")
-            else:
-                ffn_out, aux = moe_lib.moe_ffn(h2, moe_p, cfg, stats)
+            ffn_out, aux = _moe(h2, moe_p, cfg, stats, mesh, split, decode_state is None)
         else:
-            ffn_out = _ffn_dense(h2, ffn_p)
+            ffn_out = _ffn_dense(h2, ffn_p, mm_ffn)
         x = x + ffn_out
     return x, kv, aux
+
+
+def _moe(h, moe_p, cfg: LMConfig, stats, mesh, split, full_sequence: bool):
+    """A routed layer's FFN (see `_layer`). Decode (tiny token counts) takes
+    the plain dispatcher, train and prefill the expert-parallel one under
+    `moe_impl="ep"`, as `repro`; across ranks decode, and train and prefill
+    under `moe_impl="gspmd"`, take `moe_ffn_tp` (the whole batch's
+    `moe_ffn`). Under `train_layout="tp"` the ranks of "model" hold the
+    same tokens: `moe_ffn_ep`'s copies there each count 1/n of the output's
+    gradient, and x's gradient is summed over them."""
+    if split is None:
+        if cfg.moe_impl == "ep" and full_sequence:
+            return moe_ffn_ep(h, moe_p, cfg, stats, mesh=mesh)
+        return moe_lib.moe_ffn(h, moe_p, cfg, stats)
+    if cfg.moe_impl != "ep" or not full_sequence:
+        return moe_ffn_tp(h, moe_p, cfg, stats, mesh=split.mesh, rules=split.rules,
+                          w_specs=split.layer["moe"], seq=full_sequence)
+    same = [a for a in split.mesh.mesh_dim_names if a not in split.token_axes]
+    return collectives.over_copies(
+        lambda t: moe_ffn_ep(t, moe_p, cfg, stats, mesh=mesh, w_specs=split.layer["moe"]), h,
+        split.mesh, same)
 
 
 def _decode_layer_split(x, attn_p, ffn_p, moe_p, cfg: LMConfig, k_cache, v_cache, pos, split,
@@ -483,8 +616,12 @@ def _layers(params, cfg: LMConfig) -> Iterator[Tuple[Dict, Dict, Dict]]:
 
 
 def _trunk(params, tokens, cfg: LMConfig, stats, mesh, split):
-    x = _take_rows(params["embed"] if split is None
-                   else split.weight(params["embed"], split.specs["embed"]), tokens)
+    if split is None:
+        x = _take_rows(params["embed"], tokens)
+    elif split.megatron:  # the vocabulary-split lookup, as decode's
+        x = split.lookup(split.local(params["embed"], split.specs["embed"]), tokens)
+    else:
+        x = _take_rows(split.weight(params["embed"], split.specs["embed"]), tokens)
     x = x.to(_dtype(cfg))
     remat = cfg.remat and cfg.remat_policy != "none" and torch.is_grad_enabled()
     ks, vs, aux = [], [], torch.zeros((), dtype=torch.float32, device=x.device)
@@ -499,7 +636,8 @@ def _trunk(params, tokens, cfg: LMConfig, stats, mesh, split):
         aux = aux + a
     norm = params["final_norm"]
     if split is not None:
-        norm = split.weight(norm, split.specs["final_norm"])
+        norm = split.local(norm, split.specs["final_norm"]) if split.megatron else \
+            split.weight(norm, split.specs["final_norm"])
     x = apply_norm(x, norm, cfg.norm_type)
     return x, aux, (torch.stack(ks), torch.stack(vs))
 
@@ -535,6 +673,14 @@ def _logits(x, table):
 
 def _token_cross_entropy(x, table, labels, n_chunks: int = 8):
     """Each token's CE [B,S] by a streaming logsumexp over vocab chunks."""
+    m, l, dot = _streamed_ce(x, table, labels, n_chunks)  # noqa: E741
+    return (m + torch.log(torch.clamp(l, min=1e-30))) - dot
+
+
+def _streamed_ce(x, table, labels, n_chunks: int = 8):
+    """The streaming logsumexp's state over the table's rows, each [B,S]:
+    the running max m, the sum l of exp(logit - m), and the logit of each
+    label among the rows (0 for a label outside them)."""
     B, S, D = x.shape
     V = table.shape[0]
     while V % n_chunks:
@@ -557,7 +703,7 @@ def _token_cross_entropy(x, table, labels, n_chunks: int = 8):
         picked = torch.gather(logits, -1, torch.clamp(local, 0, vc - 1)[..., None])[..., 0]
         dot = dot + torch.where(in_c, picked, 0.0)
         m = m_new
-    return (m + torch.log(torch.clamp(l, min=1e-30))) - dot
+    return m, l, dot
 
 
 def chunked_cross_entropy(x, table, labels, n_chunks: int = 8):
@@ -576,8 +722,11 @@ def loss(params, batch, cfg: LMConfig, rules=None) -> Tuple[torch.Tensor, Dict]:
     if split is None:
         ce = chunked_cross_entropy(x, _output_table(params), batch["labels"])
     else:
-        table, spec = split.table(params)
-        ce = torch.sum(_token_cross_entropy(x, split.weight(table, spec), batch["labels"]))
+        if split.megatron:
+            ce = torch.sum(split.cross_entropy(x, params, batch["labels"]))
+        else:
+            table, spec = split.table(params)
+            ce = torch.sum(_token_cross_entropy(x, split.weight(table, spec), batch["labels"]))
         n_tokens = x.shape[0] * x.shape[1] * math.prod(
             split.mesh.size(split.mesh.mesh_dim_names.index(a)) for a in split.token_axes)
         ce = collectives.sum_forward(ce, split.groups(split.token_axes)) / n_tokens

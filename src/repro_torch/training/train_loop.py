@@ -18,8 +18,9 @@ block's part of every gradient; the parts are summed over the mesh dims
 that split the batch (`rules["batch"]`), and a leaf split by rows keeps
 its block. The clip's norm counts each element once over the mesh: a
 leaf's squares are summed over the dims its spec splits it over. The
-update is each rank's on its blocks, so the optimizer must be elementwise
-(`Optimizer.elementwise`: SGD and AdamW, not adam8bit). Under
+update is each rank's on its blocks (the optimizer takes the mesh and the
+params' specs: adam8bit's blocks of 256 run along a whole leaf's last
+axis, `training/optimizer`). Under
 `whole_grads` (the LM's loss, whose collectives give each rank its block
 of the whole batch's gradient: `models/transformer`) the step sums
 nothing itself.
@@ -121,22 +122,12 @@ def make_train_step(
     the step one across the ranks of `rules["__mesh__"]` (see the module's
     docstring); a mesh of one rank, or none, is the one-rank step.
     `whole_grads`: `loss_fn`'s backward gives each rank its block of the
-    whole batch's gradient already, and the step sums none. A step across
-    ranks refuses, when called, an optimizer that is not elementwise."""
-
-    def check(mesh):
-        if not optimizer.elementwise:
-            raise ValueError("this optimizer updates blocks of 256 along a leaf's last axis "
-                             "(adam8bit), which a rank's block of a split leaf would cut "
-                             "differently from the whole leaf's: a train step across ranks "
-                             "takes an elementwise one (sgd, adamw)")
-        if param_specs is None:
-            raise ValueError("a train step across ranks needs the params' PartitionSpecs")
+    whole batch's gradient already, and the step sums none."""
 
     def train_step(params, opt_state, batch):
         mesh = _mesh_of(rules)
-        if mesh is not None:
-            check(mesh)
+        if mesh is not None and param_specs is None:
+            raise ValueError("a train step across ranks needs the params' PartitionSpecs")
         paths, leaves = zip(*tree_leaves(float_tree(params)))
         sum_rules = None if whole_grads else rules
         if grad_accum > 1:
@@ -169,8 +160,9 @@ def make_train_step(
                 grads = [(g.float() * scale).to(g.dtype) for g in grads]
                 metrics = {**metrics, "grad_norm": gnorm}
             trainable = tree_from_leaves(zip(paths, leaves))
+            layout = None if mesh is None else (mesh, param_specs)
             updates, opt_state = optimizer.update(tree_from_leaves(zip(paths, grads)), opt_state,
-                                                trainable)
+                                                trainable, layout)
             new = tree_map(lambda p, u: (p.to(torch.float32) + u).to(p.dtype), trainable, updates)
         return merge_tree(params, new), opt_state, {**metrics, "loss": loss}
 

@@ -88,29 +88,34 @@ def test_cell_equals_repros(arch, shape, overrides, mesh):
         assert [_canon(s) for s in specs] == [_canon(j.spec) for j in jspecs]
 
 
-def test_lm_and_gnn_cells_and_adam8bit_refuse_two_ranks(tmp_path):
-    """The LM cells under `train_layout="tp"` and `int8_serve` are not
-    split across ranks, and adam8bit's blocks of 256 would cut a rank's
-    block of a split leaf differently from the whole leaf's: each `fn`
-    refuses the (1, 2) mesh and says why. (The GNN cells no longer refuse:
-    `test_nequip_cell_runs_on_two_ranks`.)"""
-    cases = [("yi_6b", "train_4k", "adamw", {"train_layout": "tp"}),
-             ("yi_6b", "prefill_32k", "adamw", {"int8_serve": True}),
-             ("yi_6b", "decode_32k", "adamw", {"int8_serve": True}),
-             ("yi_6b", "long_500k", "adamw", {"int8_serve": True}),
-             ("yi_6b", "train_4k", "adam8bit", None),
-             ("taobao_ssa", "train_batch", "adam8bit", None)]
-    ranks = torch_ranks.run_ranks(torch_ranks.refuse_cell_rank, 2, tmp_path, cases)
-    for rank in ranks:
-        for (arch, shape, optimizer, overrides), msg in zip(cases, rank):
-            assert msg is not None, (arch, shape)
-            if optimizer == "adam8bit":
-                assert "blocks of 256" in msg and "elementwise" in msg
-            elif overrides:
-                assert f"{next(iter(overrides))}" in msg and "runs on a mesh of one rank" in msg
-                assert "on a mesh of 2 ranks" in msg, (arch, shape)
-            else:
-                assert "mesh of one rank" in msg and "has 2" in msg, (arch, shape)
+@pytest.mark.parametrize("case", range(6), ids=["tp_train", "int8_prefill", "int8_decode",
+                                                  "int8_long", "adam8bit_lm", "adam8bit_ssa"])
+def test_lm_layouts_and_adam8bit_cells_run_on_two_ranks(case, two_rank_cells):
+    """The cells that refused a mesh of more than one rank until the LM's
+    Megatron train layout, its int8 serving and adam8bit were split across
+    ranks: each `fn` runs on the (1, 2) mesh (cut to a small size,
+    `torch_ranks._small_cell`), every output finite, and both ranks of a
+    train step return the same loss. (Each layout is held against `repro`
+    on the same mesh in `test_torch_lm_ranks_layouts` and
+    `test_torch_adam8bit_ranks`.)"""
+    ranks = [r[case] for r in two_rank_cells]
+    assert all(r["finite"] for r in ranks), ranks
+    if TWO_RANK_CELLS[case][1] in ("train_4k", "train_batch"):
+        assert ranks[0]["loss"] == ranks[1]["loss"] and np.isfinite(ranks[0]["loss"])
+
+
+TWO_RANK_CELLS = [("yi_6b", "train_4k", "adamw", {"train_layout": "tp"}),
+                  ("yi_6b", "prefill_32k", "adamw", {"int8_serve": True}),
+                  ("yi_6b", "decode_32k", "adamw", {"int8_serve": True}),
+                  ("yi_6b", "long_500k", "adamw", {"int8_serve": True}),
+                  ("yi_6b", "train_4k", "adam8bit", None),
+                  ("taobao_ssa", "train_batch", "adam8bit", None)]
+
+
+@pytest.fixture(scope="module")
+def two_rank_cells(tmp_path_factory):
+    return torch_ranks.run_ranks(torch_ranks.cell_run_rank, 2,
+                                 tmp_path_factory.mktemp("two_rank_cells"), TWO_RANK_CELLS)
 
 
 def test_nequip_cell_runs_on_two_ranks(tmp_path):

@@ -48,7 +48,12 @@ Tolerances:
   1e-5 of the largest output of the whole cache's decode attention (f32:
   the softmax's sums in another order), 3e-2 in bf16 (the plain version
   rounds its probabilities to bf16), finite where a rank holds no key that
-  counts, the same on both ranks.
+  counts, the same on both ranks;
+- adam8bit across two gloo ranks sharing the card, on shared gradients:
+  the CPU's one-rank update's bits (its scales divide by a tensor on the
+  card, as the CPU divides); its update on the card waits for the card
+  nowhere (the step count stays on the host), and three updates have the
+  CPU's bits.
 """
 import pytest
 
@@ -1460,3 +1465,72 @@ def test_nequip_across_two_ranks_on_card_matches_the_whole(cuda_device, tmp_path
         assert np.abs(r["out"] - r["one_rank"]).max() <= 1e-5 * scale, r["coord"]
         assert r["launches"] == 1, r["coord"]
     assert ranks[0]["metrics"] == ranks[1]["metrics"]
+
+
+@pytest.mark.cuda
+def test_adam8bit_across_ranks_on_card_is_the_cpus_whole_update(cuda_device, tmp_path):
+    """adam8bit across two gloo ranks sharing the card, on shared gradients
+    (`torch_ranks.adam8bit_rank`): three updates of each rank's blocks, on
+    CUDA tensors, have the bits of the CPU's one-rank update's blocks
+    (updates, codes and scales), on (1, 2) and (2, 1). The params are laid
+    out as the yi-shaped LM's FSDP train cell lays them at d_ff 768 (wo's
+    and w_down's last axis split: the ranks exchange the blocks' maxima)
+    and as taobao_ssa's (tables split by rows)."""
+    import dataclasses
+
+    import torch_ranks
+    from repro_torch.configs.base import get_config
+
+    yi = dataclasses.replace(get_config("yi_6b"), n_layers=2, d_model=512, n_heads=4,
+                             head_dim=32, n_kv_heads=2, d_ff=768, vocab_size=512,
+                             dtype="float32", q_chunk=8)
+    ssa = get_config("taobao_ssa")
+    ssa = dataclasses.replace(ssa, seq_len=8, fields=tuple(
+        dataclasses.replace(f, vocab=min(f.vocab, 1000)) for f in ssa.fields))
+    cases = [{"arch": "yi_6b", "shape_name": "train_4k", "cfg": yi, "seed": 0},
+             {"arch": "taobao_ssa", "shape_name": "train_batch", "cfg": ssa, "seed": 2}]
+    meshes = ((1, 2), (2, 1))
+    ranks = torch_ranks.run_ranks(torch_ranks.adam8bit_rank, 2, tmp_path, meshes, cases, "cuda")
+    for r in ranks:
+        for mesh in meshes:
+            for case, got in zip(cases, r[mesh]):
+                assert got["device"].startswith("cuda")
+                assert all(got["same"].values()), (mesh, case["arch"],
+                                                   [k for k, v in got["same"].items() if not v])
+    split = {k for k, v in ranks[0][(2, 1)][0]["split_last"].items() if v}
+    assert split == {"attn/wo", "ffn/w_down"}, split
+
+
+@pytest.mark.cuda
+def test_adam8bit_update_on_card_never_waits_for_it(cuda_device):
+    """Three adam8bit updates of a leaf on the card under CUDA's sync
+    debug mode "error", which raises at any host-card synchronisation:
+    the bias corrections come from the count `init` keeps on the host. The
+    updates, codes and scales have the CPU's bits."""
+    from repro_torch.training.optimizer import adam8bit
+
+    opt = adam8bit(1e-4)
+    gen = np.random.default_rng(3)
+    p_host = {"w": torch.from_numpy(gen.standard_normal((64, 600)).astype(np.float32))}
+    grads = [{"w": torch.from_numpy(gen.standard_normal((64, 600)).astype(np.float32))}
+             for _ in range(3)]
+    p_card = {"w": p_host["w"].to(cuda_device)}
+    g_card = [{"w": g["w"].to(cuda_device)} for g in grads]
+    st_host, st_card = opt.init(p_host), opt.init(p_card)
+    assert st_card["count"].device.type == "cpu"
+    torch.cuda.synchronize()
+    ups = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for g in g_card:
+            u, st_card = opt.update(g, st_card, p_card)
+            ups.append(u)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, u_card in zip(grads, ups):
+        u_host, st_host = opt.update(g, st_host, p_host)
+        assert torch.equal(u_card["w"].cpu(), u_host["w"])
+    for mv in ("m", "v"):
+        for k in ("q", "s"):
+            assert torch.equal(st_card[mv]["w"][k].cpu(), st_host[mv]["w"][k])
+    assert int(st_card["count"]) == int(st_host["count"]) == 3

@@ -13,7 +13,10 @@ on as many forced CPU devices (`torch_ranks.Reference`; its subprocess puts
 the smaller shapes into `repro.configs.shapes.FAMILY_SHAPES`, which edits
 no file) and reads `hlo_stats.analyze` of the compiled HLO. The port's dot
 flops equal `repro`'s within rel 1e-6, less four gaps, each asserted to
-the flop by formula (`_gap`; PERF.md §6 has the ops):
+the flop by formula (`_gap`; PERF.md §6 has the ops). The LM's other
+layouts join them: yi's int8 prefill and decode, its Megatron train step
+(`train_layout="tp"`) and olmoe's whole-batch MoE (`moe_impl="gspmd"`)
+train and prefill, the last three with gaps of their own below:
 
 - DIEN serve: the AUGRU's recurrence h @ wh, dots in `repro`'s scan and a
   hand-written kernel in the port (its work goes under `kernels`): the
@@ -42,13 +45,26 @@ the flop by formula (`_gap`; PERF.md §6 has the ops):
   which the port computes in each path of each layer, forward and
   recompute (2·L·(4·90 + 54)·E), and XLA hoists out of the layer loop and
   computes once ((90 + 54)·E).
+- yi's Megatron train step at (dp, tp), T the rank's B/dp·S tokens: the
+  cross entropy's three products over the vocabulary, which XLA takes on
+  every row of the table on each rank (it gathers the table for the
+  chunked scan) and the port on its rows (the vocabulary-parallel CE):
+  6·T·D·V·(1 − 1/tp) fewer; the attention (its two products of
+  2·(B/dp)·H·S²·hd a layer, counted forward, in remat's recompute and
+  twice backward), which each rank of "model" computes whole in the port
+  and XLA splits over "model": 4·L·2·2·(B/dp)·H·S²·hd·(1 − 1/tp) more.
+- olmoe under `moe_impl="gspmd"` (train and prefill, B·S tokens of the
+  whole batch): the router's product, which the port takes on the whole
+  batch on every rank and XLA on the rank's rows over "data":
+  L·2·B·S·D·E·(1 − 1/dp) more, four times in a train step.
+(These two read off the compiled HLO's dots at (2, 2).)
 
 Each rank's `argument_bytes` equals the bytes of its blocks under the cell's
 `in_specs`. The command line writes a record with `repro`'s keys (but the
 two XLA-only ones, `raw_cost_analysis` and `hlo_bytes`), NequIP's
 molecule cell on 16x16 among them (its collectives all-gathers and
-reduce-scatters), and refuses an LM layout that runs on one rank only
-with `.err.json` and exit 1. `analysis.model_flops_lm` and `mfu_ratio` equal `repro`'s.
+reduce-scatters) and yi_6b's train step under `train_layout="tp"`, and
+refuses FM's adam8bit step (a 0-d leaf) with `.err.json` and exit 1. `analysis.model_flops_lm` and `mfu_ratio` equal `repro`'s.
 """
 import json
 import os
@@ -96,6 +112,16 @@ def _cases():
             out.append({"id": f"{desc['arch']}:{kind}", "family": "lm", "arch": desc["arch"],
                         "over": desc["over"], "shape_name": name,
                         "shape": {"name": name, "kind": kind, **size}})
+    # the LM's other layouts
+    for short, over, kinds in (("yi", {"train_layout": "tp"}, ("train",)),
+                               ("yi", {"int8_serve": True}, ("prefill", "decode")),
+                               ("olmoe", {"moe_impl": "gspmd"}, ("train", "prefill"))):
+        desc = _desc(short)
+        for kind in kinds:
+            name, size = LM_SHAPES[kind]
+            out.append({"id": f"{desc['arch']}:{kind}:{next(iter(over))}", "family": "lm",
+                        "arch": desc["arch"], "over": {**desc["over"], **over},
+                        "shape_name": name, "shape": {"name": name, "kind": kind, **size}})
     for arch in ("fm", "din", "autoint", "dien"):
         for kind, name in REC_SHAPES.items():
             out.append({"id": f"{arch}:{kind}", "family": "recsys", "arch": arch, "over": {},
@@ -218,6 +244,19 @@ def _gap(case, mesh) -> float:
         B, D, E = case["shape"]["global_batch"], cfg.d_model, cfg.n_experts
         layers = cfg.n_layers // cfg.moe_interleave
         return layers * 2 * E * (B * D - (B // dp) * (D // tp))
+    cfg = get_config(case["arch"], **case["over"])
+    B, S = case["shape"].get("global_batch"), case["shape"].get("seq_len")
+    # a train step counts each product forward, again in remat's
+    # recompute, and twice in the backward
+    uses = 4 if getattr(cfg, "remat", False) else 3
+    if case["family"] == "lm" and cfg.moe_impl == "gspmd" and kind in ("train", "prefill"):
+        layers = cfg.n_layers // cfg.moe_interleave
+        router = layers * 2 * B * S * cfg.d_model * cfg.n_experts
+        return router * (1 - 1 / dp) * (uses if kind == "train" else 1)
+    if case["family"] == "lm" and cfg.train_layout == "tp" and kind == "train":
+        H, hd, V = cfg.n_heads, cfg.resolved_head_dim, cfg.vocab_size
+        attention = cfg.n_layers * 2 * 2 * (B // dp) * H * S * S * hd
+        return (uses * attention - 6 * (B * S // dp) * cfg.d_model * V) * (1 - 1 / tp)
     if case["arch"] == "nequip":
         cfg = get_config("nequip", **case["over"])
         meta = build_cell("nequip", case["shape_name"], AbstractMesh((1, 1), ("data", "model")),
@@ -259,7 +298,9 @@ def cli(tmp_path_factory):
     runs = {"fm": _run_cli(tmp, "--arch", "fm", "--shape", "serve_p99", "--mesh", "single"),
             "nequip": _run_cli(tmp, "--arch", "nequip", "--shape", "molecule", "--mesh", "single"),
             "tp": _run_cli(tmp, "--arch", "yi_6b", "--shape", "train_4k", "--mesh", "single",
-                           "--overrides", '{"train_layout": "tp"}', "--tag", "tp")}
+                           "--overrides", '{"train_layout": "tp"}', "--tag", "tp"),
+            "fm_a8": _run_cli(tmp, "--arch", "fm", "--shape", "train_batch", "--mesh", "single",
+                              "--optimizer", "adam8bit", "--tag", "a8")}
     done = {}
     for k, p in runs.items():
         stdout, stderr = p.communicate(timeout=DEADLINE_S)
@@ -301,10 +342,28 @@ def test_nequips_cell_writes_a_record_of_gathers_and_reduce_scatters(cli):
     assert stdout.startswith("OK nequip:molecule [16x16]")
 
 
+def test_the_megatron_train_layout_writes_a_record(cli):
+    """yi_6b's train_4k under `train_layout="tp"` on 16x16: a record of its
+    dot flops, with no all-gather or reduce-scatter (the weights' blocks
+    stay in place), only the all-reduces of Megatron's products, the
+    vocabulary-split lookup and cross entropy, and the gradients' sums."""
+    tmp, done = cli
+    rc, stdout, stderr = done["tp"]
+    assert rc == 0, stderr
+    assert not (tmp / "yi_6b__train_4k__single__tp.err.json").exists()
+    rec = json.loads((tmp / "yi_6b__train_4k__single__tp.json").read_text())
+    assert REPRO_KEYS <= set(rec) and rec["meta"]["kind"] == "train"
+    assert rec["flops"] > 0 and rec["collectives"]["all-reduce"] > 0
+    assert rec["collectives"]["all-gather"] == rec["collectives"]["reduce-scatter"] == 0
+    assert stdout.startswith("OK yi_6b:train_4k [16x16]")
+
+
 @pytest.mark.parametrize("which,name,refusal", [
-    ("tp", "yi_6b__train_4k__single__tp.err.json", "ValueError"),
+    ("fm_a8", "fm__train_batch__single__a8.err.json", "ValueError"),
 ])
 def test_a_cell_that_refuses_its_mesh_writes_err_json(cli, which, name, refusal):
+    """FM's step under adam8bit: its 0-d bias has no last axis to block,
+    and both packages refuse it."""
     tmp, done = cli
     rc, stdout, _ = done[which]
     assert rc == 1 and stdout.startswith("FAIL")

@@ -62,6 +62,7 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
     assert {"repro_torch.distributed.collectives", "repro_torch.launch.cells"} <= walked
     assert {"repro_torch.launch.dryrun", "repro_torch.launch.hlo_stats",
             "repro_torch.launch.analysis", "repro_torch.kernels.work"} <= walked
+    assert {"repro_torch.launch.elastic_scaling", "repro_torch.launch.multi_cell"} <= walked
 
 
 _FORBIDDEN = re.compile(

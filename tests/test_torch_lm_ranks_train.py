@@ -63,6 +63,10 @@ ALL_MESHES = ("yi", "olmoe")  # the rest run on (2, 2)
 TOL = 1e-5
 GRAD_TOL = 1e-5
 LR = 1e-4  # the cells' AdamW
+# adam8bit's int8 codes: within one step of `repro`'s, at most this share
+# of them off (the rule of its jitted update on shared gradients,
+# `test_torch_optimizer`)
+A8_CODE_SHARE = 1e-3
 B, S = 8, 16  # train: 8 sequences of 16 tokens
 LONG_WINDOW, LONG_GLOBAL = 256, 64  # the long-context cases' C2 pattern
 # alone the references and the ranks take ~35 and ~25 s, together ~60;
@@ -84,7 +88,7 @@ def _desc(arch):
 
 
 def port_cfg(desc, **more):
-    return dataclasses.replace(get_config(desc["arch"]), **desc["over"], **more)
+    return dataclasses.replace(get_config(desc["arch"]), **{**desc["over"], **more})
 
 
 def params_of(arch):
@@ -116,7 +120,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.configs.base import get_config
 from repro.configs.shapes import LMShape
 from repro.distributed.sharding import LM_RULES, adapt_rules, pspec
-from repro.launch.cells import _lm_cell
+from repro.launch.cells import _int8_lm_defs, _lm_cell
 from repro.launch.mesh import compat_make_mesh
 from repro.models import transformer as tf
 from repro.models.common import param_pspecs
@@ -147,34 +151,36 @@ mesh = compat_make_mesh(shape, names, devices=jax.devices()[:int(np.prod(shape))
 rules = adapt_rules(LM_RULES, mesh)
 out = {}
 for i, case in cases:
-    cfg = dataclasses.replace(get_config(case["desc"]["arch"]), **case["desc"]["over"],
-                              **case.get("more", {}))
-    kind = case["kind"]
-    p = jax.tree.map(jnp.asarray, params[case["desc"]["arch"]])
+    cfg = dataclasses.replace(get_config(case["desc"]["arch"]),
+                              **{**case["desc"]["over"], **case.get("more", {})})
+    kind, opt = case["kind"], case.get("optimizer", "adamw")
+    p = jax.tree.map(jnp.asarray, params[case.get("params", case["desc"]["arch"])])
     args = (p,) + jax.tree.map(jnp.asarray, case["args"])
     if kind in ("step", "train"):
-        args = (p, get_optimizer("adamw").init(p)) + args[1:]
+        args = (p, get_optimizer(opt).init(p)) + args[1:]
     if kind == "long":
         lrules = {**rules, "batch": None}
         c_spec = pspec(tf.cache_axes(cfg, long_context=True), lrules)
-        p_specs = param_pspecs(tf.param_defs(cfg), lrules, serve=True)
+        defs = tf.param_defs(cfg)
+        p_specs = param_pspecs(_int8_lm_defs(defs) if cfg.int8_serve else defs, lrules,
+                               serve=True)
         in_sh = ns(mesh, (p_specs, (c_spec, c_spec), P(), P()))
         out_sh = ns(mesh, (P(), (c_spec, c_spec)))
         fn = jax.jit(lambda p, c, t, q: tf.decode(p, c, t, q, cfg, lrules), in_shardings=in_sh,
                      out_shardings=out_sh)
     else:
-        cell = _lm_cell(cfg, LMShape(**case["shape"]), mesh, rules, "adamw",
-                        accum=case["accum"])
+        cell = _lm_cell(cfg, LMShape(**case["shape"]), mesh, rules, opt, accum=case["accum"])
         if kind == "train":  # an arch's gradients and steps on this mesh, one compile
             sh = cell.in_shardings
-            vg = jax.value_and_grad(lambda p, b: tf.loss(p, b, cfg, rules), has_aux=True)
+            trules = {**rules, "seq": None} if cfg.train_layout == "tp" else rules  # the cell's
+            vg = jax.value_and_grad(lambda p, b: tf.loss(p, b, cfg, trules), has_aux=True)
             fns, outs = [], []
             for _, part, accum in case["parts"]:
                 if part == "grad":
                     fns.append(lambda p, o, b: (lambda r: (r[0][0], r[1]))(vg(p, b)))
                     outs.append((NamedSharding(mesh, P()), sh[0]))
                 else:
-                    step = _lm_cell(cfg, LMShape(**case["shape"]), mesh, rules, "adamw",
+                    step = _lm_cell(cfg, LMShape(**case["shape"]), mesh, rules, opt,
                                     accum=accum)
                     fns.append(step.fn)
                     outs.append(step.out_shardings)
@@ -211,38 +217,94 @@ def flat(prefix, tree, out):
     return out
 
 
-def _port_case(i, case, inputs, shapes):
+def _port_case(i, case, inputs, shapes, variants=None):
+    """Case i, (arch, kind, accum, mesh), for the port's ranks. A kind
+    "v:k" is kind k of variant v: `variants[v]` = (config overrides, the
+    step's optimizer)."""
     arch, kind, accum, mesh = case
+    variant, kind = kind.split(":") if ":" in kind else ("", kind)
+    over, optimizer = (variants or {}).get(variant, ({}, "adamw"))
     desc = _desc(arch)
     shape_name, shape = shapes[kind]
-    more = ({"attn_window": LONG_WINDOW, "attn_n_global": LONG_GLOBAL, "sparse_attention": True}
-            if kind == "long" else {})
-    return {"arch": desc["arch"], "shape_name": shape_name, "shape": shape,
-            "cfg": port_cfg(desc, **more), "kind": "decode" if kind == "long" else kind,
-            "accum": accum, "mesh": mesh, "args": inputs(i, arch, kind), "more": more}
+    more = dict(over)
+    if kind == "long":
+        more.update(attn_window=LONG_WINDOW, attn_n_global=LONG_GLOBAL, sparse_attention=True)
+    cfg = port_cfg(desc, **more)
+    return {"arch": desc["arch"], "shape_name": shape_name, "shape": shape, "cfg": cfg,
+            "kind": "decode" if kind == "long" else kind, "ref_kind": kind, "accum": accum,
+            "mesh": mesh, "args": inputs(i, arch, kind), "more": more, "optimizer": optimizer,
+            "params": params_key(desc["arch"], cfg)}
 
 
-def run_all(tmp, cases, inputs, shapes, one_rank=(), ref_size=6):
+def params_key(arch, cfg):
+    """The key of a case's whole params: the arch's, or another tree where
+    its config changes their shapes or kinds (another d_ff, int8)."""
+    base = port_cfg(_desc(next(a for a, n in ARCHS.items() if n == arch)))
+    key = arch + ("" if cfg.d_ff == base.d_ff else f":ff{cfg.d_ff}")
+    return key + (":int8" if cfg.int8_serve else "")
+
+
+def params_for(key):
+    """The whole numpy params of `params_key`'s key: `params_of`'s, or,
+    with another d_ff, those of that config (the same seed); with int8,
+    `int8_params`' conversion of them."""
+    arch, *rest = key.split(":")
+    short = next(a for a, n in ARCHS.items() if n == arch)
+    ff = next((int(r[2:]) for r in rest if r.startswith("ff")), None)
+    if ff is None:
+        params = params_of(short)
+    else:
+        cfg = port_cfg(_desc(short), d_ff=ff)
+        gen = torch.Generator().manual_seed(list(ARCHS).index(short))
+        params = to_numpy_tree(init_params(transformer.param_defs(cfg), gen, "cpu"))
+    return int8_params(params, list(ARCHS).index(short)) if "int8" in rest else params
+
+
+def int8_params(params, seed):
+    """`repro`'s int8 serving tree (`transformer.int8_param_defs`) over
+    whole numpy params: each converted weight's int8 codes and positive f32
+    scales drawn from `seed` (per out channel of a matrix, scaled by
+    1/√d_in; per row of a table), the other leaves as they are."""
+    rng = np.random.default_rng(1000 + seed)
+
+    def visit(name, v):
+        if isinstance(v, dict):
+            return {k: visit(k, x) for k, x in v.items()}
+        if v.ndim < 2 or name.startswith(("attn_norm", "ffn_norm", "b")) or "norm" in name:
+            return v
+        q = rng.integers(-127, 128, v.shape).astype(np.int8)
+        if name in ("embed", "lm_head"):
+            s = rng.uniform(0.5, 1.5, v.shape[:1]) / 127
+        else:
+            s = rng.uniform(0.5, 1.5, v.shape[:-2] + v.shape[-1:]) / 127 / np.sqrt(v.shape[-2])
+        return {"q": q, "s": s.astype(np.float32)}
+
+    return {k: (v if k == "moe" else visit(k, v)) for k, v in params.items()}
+
+
+def run_all(tmp, cases, inputs, shapes, one_rank=(), ref_size=6, variants=None):
     """Every case through `repro` (subprocesses of at most `ref_size` cases
     of one mesh) and the port (4 gloo ranks, all meshes in one spawn), the
     two at once; then the cases `one_rank` on one rank against the plain
     call. A case is (arch, kind, accum, mesh); `inputs(i, arch, kind)` its
-    own whole args; `shapes` kind -> (shape name, LMShape). Returns (port
-    cases, {mesh: reference arrays}, {mesh: per rank, its results}, the
-    one-rank equalities)."""
+    own whole args; `shapes` kind -> (shape name, LMShape); `variants` as
+    `_port_case`'s. Returns (port cases, {mesh: reference arrays}, {mesh:
+    per rank, its results}, the one-rank equalities)."""
     by_mesh = {m: [] for m in MESHES}
-    archs = sorted({c[0] for c in list(cases) + list(one_rank)})
-    params = {ARCHS[a]: params_of(a) for a in archs}
-    port_cases = [_port_case(i, c, inputs, shapes) for i, c in enumerate(cases)]
-    for i, ((arch, kind, accum, mesh), pc) in enumerate(zip(cases, port_cases)):
-        desc, more, args, shape = _desc(arch), pc["more"], pc["args"], pc["shape"]
-        by_mesh[mesh].append((i, {"desc": desc, "more": more, "kind": kind,
-            "accum": accum, "args": args, "shape": dataclasses.asdict(shape)}))
+    port_cases = [_port_case(i, c, inputs, shapes, variants) for i, c in enumerate(cases)]
+    one_cases = [_port_case(i, c, inputs, shapes, variants) for i, c in enumerate(one_rank)]
+    params = {k: params_for(k) for k in sorted({c["params"] for c in port_cases + one_cases})}
+    for i, ((arch, _, accum, mesh), pc) in enumerate(zip(cases, port_cases)):
+        by_mesh[mesh].append((i, {"desc": _desc(arch), "more": pc["more"],
+                                  "kind": pc["ref_kind"], "accum": accum, "args": pc["args"],
+                                  "shape": dataclasses.asdict(pc["shape"]),
+                                  "optimizer": pc["optimizer"], "params": pc["params"]}))
     for m, ref_cases in by_mesh.items():  # an arch's grad case and steps compile as one
         of, train = dict(ref_cases), {}
         for j, c in ref_cases:
             if c["kind"] in ("grad", "step"):
-                train.setdefault(c["desc"]["arch"], []).append(j)
+                key = (c["params"], json.dumps(c["more"], sort_keys=True), c["optimizer"])
+                train.setdefault(key, []).append(j)
         merged = [js for js in train.values() if len(js) > 1]
         drop = {j for js in merged for j in js}
         by_mesh[m] = [(j, c) for j, c in ref_cases if j not in drop] + [
@@ -255,16 +317,14 @@ def run_all(tmp, cases, inputs, shapes, one_rank=(), ref_size=6):
     try:
         for j, (m, part) in enumerate(parts):
             with open(tmp / f"cases{j}.pkl", "wb") as f:
-                pickle.dump((part, {c["desc"]["arch"]: params[c["desc"]["arch"]]
-                                    for _, c in part}), f)
+                pickle.dump((part, {c["params"]: params[c["params"]] for _, c in part}), f)
             refs.append(torch_ranks.Reference(
                 REFERENCE, [tmp / f"cases{j}.pkl", tmp / f"ref{j}.npz", json.dumps(list(m))],
                 4, CHEAP_XLA, timeout=DEADLINE_S))
         ranks = torch_ranks.run_ranks(torch_ranks.lm_rank, 4, tmp, meshes, port_cases, params,
                                       timeout=DEADLINE_S)
-        one = one_rank and torch_ranks.run_ranks(
-            torch_ranks.one_rank_lm, 1, tmp,
-            [_port_case(i, c, inputs, shapes) for i, c in enumerate(one_rank)], params)[0]
+        one = one_rank and torch_ranks.run_ranks(torch_ranks.one_rank_lm, 1, tmp, one_cases,
+                                                 params)[0]
         for ref in refs:
             ref.wait()
     finally:
@@ -286,7 +346,7 @@ def compare(i, c, ref, ranks, tols):
     mesh = tuple(c["mesh"])
     amesh = AbstractMesh(mesh, axis_names(mesh))
     cell = build_cell(c["arch"], c["shape_name"], amesh, cfg=c["cfg"], shape=c["shape"],
-                      accum=c["accum"])
+                      accum=c["accum"], optimizer=c.get("optimizer", "adamw"))
     if c["kind"] == "grad":
         out_specs = (P(), cell.in_specs[0])
     elif c["kind"] == "decode":
@@ -295,7 +355,7 @@ def compare(i, c, ref, ranks, tols):
         out_specs = cell.out_specs
     specs = flat(str(i), out_specs, {})
     assert len({r["coord"] for r in ranks}) == len(ranks)
-    errs, n, n_far = {}, 0, 0
+    errs, n, n_far, n_codes, n_codes_off = {}, 0, 0, 0, 0
     for r in ranks:
         got = flat(str(i), r["out"], {})
         assert set(got) == set(specs), (sorted(got), sorted(specs))
@@ -309,11 +369,17 @@ def compare(i, c, ref, ranks, tols):
                 continue
             g = np.asarray(got[key])
             assert g.shape == blk.shape, (key, g.shape, blk.shape)
+            if whole.dtype == np.int8:  # adam8bit's codes: the rule of `A8_CODE_SHARE`
+                d = np.abs(blk.astype(np.int64) - g)
+                assert d.max() <= 1, (key, d.max())
+                n_codes, n_codes_off = n_codes + d.size, n_codes_off + int((d > 0).sum())
+                continue
             assert np.all(np.isfinite(g)), key
             scale = float(np.max(np.abs(whole)))
             errs[key] = max(errs.get(key, 0.0), float(np.max(np.abs(blk.astype(np.float64) - g))
                                                        / max(scale, 1e-30)))
     assert n_far <= ADAM_FLIP_SHARE * n, (n_far, n)
+    assert n_codes_off <= A8_CODE_SHARE * n_codes, (n_codes_off, n_codes)
     bad = {k: e for k, e in errs.items()
            if e > next(t for p, t in tols if k.startswith(f"{i}/{p}"))}
     return errs, bad

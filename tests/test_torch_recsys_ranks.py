@@ -227,7 +227,8 @@ out = {}
 for i, case in enumerate(cases):
     cfg = make_cfg(case["desc"])
     kind = case["kind"]
-    cell = _rec_cell(cfg, RecSysShape(**case["shape"]), mesh, rules, "adamw")
+    cell = _rec_cell(cfg, RecSysShape(**case["shape"]), mesh, rules,
+                     case.get("optimizer", "adamw"))
     args = jax.tree.map(jnp.asarray, case["args"])
     shardings = (stretch(case["args"][0], cell.in_shardings[0]),) + tuple(cell.in_shardings[1:])
     if kind == "grad":

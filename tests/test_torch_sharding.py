@@ -254,7 +254,7 @@ def layouts(tmp_path_factory):
         ranks = torch_ranks.run_ranks(torch_ranks.layout_rank, 4, tmp, cases,
                                       str(tmp / "ckpt"))
         one = torch_ranks.run_ranks(torch_ranks.mesh_rank, 1, tmp)[0]
-        two = torch_ranks.run_ranks(torch_ranks.refuse_rank, 2, tmp)
+        two = torch_ranks.run_ranks(torch_ranks.two_rank_layouts_rank, 2, tmp)
         out = ref.wait()
     finally:
         ref.kill()
@@ -294,13 +294,11 @@ def test_test_mesh_constrain_and_a_moe_transformer_through_the_mesh(layouts):
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 1)])
-def test_a_moe_transformer_refuses_a_mesh_of_two_ranks(shape, layouts):
-    # the forward is split across ranks in the "fsdp" training layout and
-    # the serving one; train_layout="tp" and int8_serve are not, and a mesh
-    # of two ranks is refused for them
+def test_a_moe_transformer_runs_tp_training_and_int8_prefill_on_two_ranks(shape, layouts):
+    # the forward is split across ranks in the "fsdp" training layout, the
+    # serving one, the Megatron one (train_layout="tp") and int8_serve's: on
+    # a mesh of two ranks the loss, its gradients and the int8 prefill are
+    # the one-rank call's blocks within 1e-5 of the largest |value|
     for r in layouts[4]:
-        for name, what in (("loss", "train_layout='tp'"), ("prefill", "int8_serve")):
-            msg = r[(shape, name)]
-            assert msg is not None, (shape, name)
-            assert msg.startswith(f"{what} runs on a mesh of one rank; "), msg
-            assert "on a mesh of 2 ranks" in msg, msg
+        for name in ("loss", "prefill"):
+            assert r[(shape, name)] <= 1e-5, (shape, name, r[(shape, name)])

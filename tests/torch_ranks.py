@@ -160,38 +160,67 @@ def compression_rank(rank, world, grads, steps):
     return out
 
 
-def refuse_rank(rank, world):
-    """A reduced MoE transformer's `loss` under `train_layout="tp"` and its
-    `prefill` under `int8_serve`, the two layouts not split across ranks,
-    on each mesh of this world's two ranks, (1, 2) and (2, 1): the message
-    of each refusal, or None where the call went through."""
+def two_rank_layouts_rank(rank, world):
+    """A reduced MoE transformer's `loss` (and gradients) under
+    `train_layout="tp"` and its `prefill` under `int8_serve`, on each mesh
+    of this world's two ranks, (1, 2) and (2, 1), each rank on its blocks:
+    {(mesh, name): the largest difference from the one-rank call on the
+    whole arguments (its block), over the largest |value|}. The MoE layer
+    dispatches the whole batch (`moe_impl="gspmd"`), as the one-rank call
+    does (`moe_impl="ep"` routes each shard's tokens on its own)."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
-    from repro_torch.distributed.sharding import LM_RULES, adapt_rules
+    from repro_torch.distributed.sharding import LM_RULES, adapt_rules, block_slices, pspec
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer
-    from repro_torch.models.common import init_params
+    from repro_torch.models.common import init_params, param_pspecs, tree_leaves, tree_map
+    from repro_torch.training.train_loop import value_and_grad
 
     cfg = dataclasses.replace(get_config("olmoe_1b_7b"), n_layers=1, d_model=32, n_heads=2,
                               n_kv_heads=2, d_ff=16, vocab_size=64, n_experts=4, top_k=2,
-                              dtype="float32")
-    params = init_params(transformer.param_defs(cfg), torch.Generator().manual_seed(0), "cpu")
+                              dtype="float32", moe_impl="gspmd")
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(transformer.param_defs(cfg), gen, "cpu")
+    int8 = init_params(transformer.int8_param_defs(transformer.param_defs(cfg)), gen, "cpu")
+    int8 = tree_map(lambda t: torch.randint(-127, 128, t.shape, generator=gen, dtype=torch.int8)
+                    if t.dtype == torch.int8 else t, int8)
+    int8["moe"], int8["attn"]["attn_norm"] = params["moe"], params["attn"]["attn_norm"]
+    int8["attn"]["ffn_norm"], int8["final_norm"] = params["attn"]["ffn_norm"], params["final_norm"]
     tokens = torch.randint(0, 64, (2, 8), generator=torch.Generator().manual_seed(1))
     batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
-    tp, int8 = (dataclasses.replace(cfg, **kw) for kw in ({"train_layout": "tp"},
-                                                          {"int8_serve": True}))
+    tp, i8 = (dataclasses.replace(cfg, **kw) for kw in ({"train_layout": "tp"},
+                                                        {"int8_serve": True}))
     out = {}
     for shape in ((1, 2), (2, 1)):
-        rules = adapt_rules(LM_RULES, make_mesh(shape, ("data", "model"), "cpu"))
-        for name, call in (("loss", lambda: transformer.loss(params, batch, tp, rules)),
-                           ("prefill", lambda: transformer.prefill(params, tokens, int8,
-                                                                   rules=rules))):
-            try:
-                call()
-                out[(shape, name)] = None
-            except ValueError as e:
-                out[(shape, name)] = str(e)
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        coord = tuple(mesh.get_coordinate())
+        rules = adapt_rules(LM_RULES, mesh)
+        trules = {**rules, "seq": None}  # the tp train cell's
+
+        def cut(t, spec):
+            return t[block_slices(t.shape, spec, mesh, coord)]
+
+        def rel(got, whole, spec):
+            return float((got - cut(whole, spec)).abs().max() / whole.abs().max())
+
+        specs = param_pspecs(transformer.param_defs(cfg), trules, serve=True)
+        bspec = pspec(("batch", "seq"), trules)
+        loss, _, grads = value_and_grad(lambda p, b: transformer.loss(p, b, tp, trules),
+                                        tree_map(cut, params, specs),
+                                        {k: cut(v, bspec) for k, v in batch.items()})
+        loss1, _, grads1 = value_and_grad(lambda p, b: transformer.loss(p, b, tp), params, batch)
+        errs = [rel(g, g1, spec) for (_, g), (_, g1), (_, spec) in
+                zip(tree_leaves(grads), tree_leaves(grads1), tree_leaves(specs))]
+        out[(shape, "loss")] = max([abs(float(loss - loss1)) / abs(float(loss1))] + errs)
+        ispecs = param_pspecs(transformer.int8_param_defs(transformer.param_defs(cfg)), rules,
+                              serve=True)
+        with torch.no_grad():
+            logits, _ = transformer.prefill(tree_map(cut, int8, ispecs),
+                                            cut(tokens, pspec(("batch", "seq"), rules)), i8,
+                                            rules=rules)
+            logits1, _ = transformer.prefill(int8, tokens, i8)
+        out[(shape, "prefill")] = rel(logits, logits1, pspec(("batch", None), rules))
     return out
 
 
@@ -341,7 +370,7 @@ def recsys_rank(rank, world, mesh_shapes, cases):
         for case in cases:
             cfg = case["cfg"]
             cell = build_cell(case["arch"], case["shape_name"], mesh, cfg=cfg,
-                              shape=case["shape"])
+                              shape=case["shape"], optimizer=case.get("optimizer", "adamw"))
             specs = (spec_tree(case["args"][0], cell.in_specs[0]),) + tuple(cell.in_specs[1:])
             if case["kind"] == "grad":
                 specs = (specs[0], specs[2])
@@ -362,37 +391,107 @@ def recsys_rank(rank, world, mesh_shapes, cases):
     return results
 
 
-def refuse_cell_rank(rank, world, cases):
-    """Each (arch, shape, optimizer, overrides) cell built on the (1, 2)
-    mesh of this world's two ranks and its `fn` called on the cell's own
-    "meta" args: the message of each refusal, or None where the call went
-    through."""
+def cell_run_rank(rank, world, cases):
+    """Each (arch, shape, optimizer, overrides) cell, at a reduced size
+    (`_small_cell`), built on the (1, 2) mesh of this world's two ranks and
+    its `fn` called on this rank's blocks of whole arguments from a seed:
+    per case, whether every output is finite, and the loss of a train
+    step (every rank returns the whole batch's)."""
     from repro_torch.launch.cells import build_cell
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import tree_leaves
 
     mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+    coord = tuple(mesh.get_coordinate())
     out = []
     for arch, shape, optimizer, overrides in cases:
-        cell = build_cell(arch, shape, mesh, optimizer=optimizer, overrides=overrides)
-        try:
-            cell.fn(*cell.args)
-            out.append(None)
-        except ValueError as e:
-            out.append(str(e))
+        cfg, small = _small_cell(arch, shape, overrides)
+        cell = build_cell(arch, shape, mesh, optimizer=optimizer, cfg=cfg, shape=small)
+        args = _whole_args(arch, cfg, cell, optimizer)
+        specs = (spec_tree(args[0], cell.in_specs[0]),) + tuple(cell.in_specs[1:])
+        blocks = [cut(a, s, mesh, coord) for a, s in zip(args, specs)]
+        with torch.set_grad_enabled(small.kind == "train"):
+            res = cell.fn(*blocks)
+        leaves = [t for _, t in tree_leaves(_as_dicts(res)) if t.is_floating_point()]
+        out.append({"finite": all(bool(torch.isfinite(t).all()) for t in leaves),
+                    "loss": float(res[2]["loss"]) if small.kind == "train" else None})
     return out
 
 
+def _small_cell(arch, shape, overrides):
+    """(config, shape) of a cell cut to a few hundred kB: an LM of 2 layers
+    of width 64 over 128 tokens, the recommender's vocabularies at 1,000
+    and a history of 8."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.shapes import LMShape, RecSysShape
+
+    cfg = get_config(arch, **(overrides or {}))
+    if arch == "taobao_ssa":
+        cfg = dataclasses.replace(cfg, seq_len=8, fields=tuple(
+            dataclasses.replace(f, vocab=min(f.vocab, 1000)) for f in cfg.fields))
+        return cfg, RecSysShape(shape, 8, "train")
+    cfg = dataclasses.replace(cfg, n_layers=2, d_model=64, n_heads=4, head_dim=16, n_kv_heads=2,
+                              d_ff=128, vocab_size=128, dtype="float32", q_chunk=8)
+    kind = {"train_4k": "train", "prefill_32k": "prefill"}.get(shape, "decode")
+    seq, batch = {"train": (8, 4), "prefill": (8, 4)}.get(
+        kind, (64, 1) if shape == "long_500k" else (32, 4))
+    return cfg, LMShape(shape, seq, batch, kind)
+
+
+def _whole_args(arch, cfg, cell, optimizer):
+    """A small cell's whole arguments, numpy, from seed 0: the params at
+    their defs' init (int8 codes drawn), a fresh optimizer state, the
+    tokens (or a Taobao batch), a cache of normals and its positions."""
+    from repro_torch.data.synthetic import taobao_batches
+    from repro_torch.models import transformer
+    from repro_torch.models.common import from_numpy_tree, init_params, tree_map
+    from repro_torch.models.recsys import api
+    from repro_torch.training.optimizer import get_optimizer
+
+    gen = torch.Generator().manual_seed(0)
+    if arch == "taobao_ssa":
+        params = init_params(api.param_defs(cfg), gen, "cpu")
+        batch = next(taobao_batches(cfg, cell.args[2]["label"].shape[0], 1, seed=0))
+        state = get_optimizer(optimizer).init(params)
+        return [_numpy_tree(params), _numpy_tree(state), batch]
+    defs = transformer.param_defs(cfg)
+    if cfg.int8_serve and cell.meta["kind"] != "train":
+        defs = transformer.int8_param_defs(defs)
+    params = tree_map(lambda t: torch.randint(-127, 128, t.shape, generator=gen, dtype=torch.int8)
+                      if t.dtype == torch.int8 else t, init_params(defs, gen, "cpu"))
+    ids = lambda shape, high: torch.randint(0, high, tuple(shape), generator=gen,  # noqa: E731
+                                            dtype=torch.int32).numpy()
+    if cell.meta["kind"] == "train":
+        b = cell.args[2]["tokens"].shape
+        state = _numpy_tree(get_optimizer(optimizer).init(from_numpy_tree(
+            _numpy_tree(params), "cpu")))
+        return [_numpy_tree(params), state, {"tokens": ids(b, cfg.vocab_size),
+                                             "labels": ids(b, cfg.vocab_size)}]
+    if cell.meta["kind"] == "prefill":
+        return [_numpy_tree(params), ids(cell.args[1].shape, cfg.vocab_size)]
+    cache = tuple(torch.randn(tuple(c.shape), generator=gen).numpy() for c in cell.args[1])
+    T = cell.args[1][0].shape[2]
+    return [_numpy_tree(params), cache, ids(cell.args[2].shape, cfg.vocab_size),
+            ids(cell.args[3].shape, T - 1)]
+
+
 def _lm_args(case, params, cell, cut_fn):
-    """A case's arguments for its cell: the arch's params, a fresh AdamW
-    state for a step, then the case's own (`cut_fn(tree, spec)` gives the
-    blocks a rank holds)."""
+    """A case's arguments for its cell: the params (`params[case["params"]]`,
+    by default the arch's), a fresh state of the case's optimizer (AdamW by
+    default; the rank's blocks of the whole params' state) for a step, then
+    the case's own (`cut_fn(tree, spec)` gives the blocks a rank holds)."""
     from repro_torch.distributed.sharding import P
+    from repro_torch.models.common import from_numpy_tree
     from repro_torch.training.optimizer import get_optimizer
 
     specs = list(cell.in_specs)
-    p = cut_fn(params[case["arch"]], spec_tree(params[case["arch"]], specs[0]))
+    whole = params[case.get("params", case["arch"])]
+    p = cut_fn(whole, spec_tree(whole, specs[0]))
     if case["kind"] == "step":
-        return [p, get_optimizer("adamw").init(p), cut_fn(case["args"][0], specs[2])]
+        state = get_optimizer(case.get("optimizer", "adamw")).init(from_numpy_tree(whole, "cpu"))
+        return [p, cut_fn(_numpy_tree(state), specs[1]), cut_fn(case["args"][0], specs[2])]
     if case["kind"] == "grad":
         return [p, cut_fn(case["args"][0], specs[2])]
     if case["kind"] == "decode":  # a row of tokens a step
@@ -406,6 +505,8 @@ def _lm_call(case, cell, args, rules):
     from repro_torch.training.train_loop import value_and_grad
 
     kind, cfg = case["kind"], case["cfg"]
+    if cfg.train_layout == "tp":  # the cell's: tokens split by batch only
+        rules = {**rules, "seq": None}
     with torch.set_grad_enabled(kind in ("grad", "step")):
         if kind == "grad":
             loss, _, grads = value_and_grad(
@@ -432,7 +533,9 @@ def lm_rank(rank, world, mesh_shapes, cases, params):
     training layout; args (batch,)), "step" (the train cell's step from a
     fresh AdamW state; args (batch,)), "prefill" (args (tokens,)),
     "decode" (the decode cell stepped once a row of tokens [n, B], at
-    pos, pos + 1, ...; args (cache, tokens, pos)). Returns {mesh shape: per
+    pos, pos + 1, ...; args (cache, tokens, pos)); optionally "params"
+    (its key in `params`, by default "arch") and "optimizer" (the step's,
+    by default "adamw"). Returns {mesh shape: per
     case of that mesh (in `cases` order) this rank's coordinate and its
     blocks of the outputs, in numpy; a decode's outputs are (its logits
     stacked over the steps, the last cache)}."""
@@ -450,7 +553,8 @@ def lm_rank(rank, world, mesh_shapes, cases, params):
             if tuple(case["mesh"]) != tuple(mesh_shape):
                 continue
             cell = build_cell(case["arch"], case["shape_name"], mesh, cfg=case["cfg"],
-                              shape=case["shape"], accum=case["accum"])
+                              shape=case["shape"], accum=case["accum"],
+                              optimizer=case.get("optimizer", "adamw"))
             args = _lm_args(case, params, cell, lambda t, s: cut(t, s, mesh, coord))
             out.append({"coord": coord, "out": _numpy_tree(_lm_call(case, cell, args, rules))})
     return results
@@ -663,3 +767,79 @@ def gnn_cell_rank(rank, world, mesh_shape, device="cpu"):
             "finite": all(bool(torch.isfinite(t).all()) for _, t in tree_leaves(new)),
             "same_shapes": [t.shape for _, t in tree_leaves(new)]
             == [t.shape for _, t in tree_leaves(params)]}
+
+
+def adam8bit_rank(rank, world, mesh_shapes, cases, device="cpu"):
+    """adam8bit across ranks on shared gradients: for each case, a dict of
+    "arch", "shape_name" and "cfg" (the train cell whose specs lay the
+    params out, `launch/cells.build_cell(..., optimizer="adam8bit")`) and
+    "seed", the whole params (`init_params` of the arch's defs) and three
+    draws of gradients (normal, each leaf at a scale of 10^-3 to 10^2) are
+    made alike on every rank; the one-rank update runs on the CPU on the
+    whole tree, and this rank's update on its blocks on `device` (the
+    state the whole state's blocks, under the cell's specs), on each mesh
+    of `mesh_shapes`. Returns {mesh: per case, this rank's coordinate and
+    per leaf (path joined by "/"): whether every update and moment (codes
+    and scales) of its blocks has the bits of the one-rank call's block,
+    and whether its last axis is split (its update then exchanges the
+    blocks' maxima)}."""
+    from repro_torch.distributed.sharding import block_slices
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import axis_names, make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.common import float_tree, init_params, tree_leaves, tree_map
+    from repro_torch.models.recsys import api
+    from repro_torch.training.optimizer import _cols_of, adam8bit
+
+    results = {}
+    for mesh_shape in mesh_shapes:
+        mesh = make_mesh(mesh_shape, axis_names(mesh_shape), "cpu")
+        coord = tuple(mesh.get_coordinate())
+        out = results[tuple(mesh_shape)] = []
+        for case in cases:
+            cfg = case["cfg"]
+            cell = build_cell(case["arch"], case["shape_name"], mesh, cfg=cfg,
+                              optimizer="adam8bit")
+            p_specs, o_specs = cell.in_specs[:2]
+            defs = (transformer if case["arch"] in ("yi_6b", "olmoe_1b_7b") else api).param_defs(cfg)
+            whole = float_tree(init_params(defs, torch.Generator().manual_seed(case["seed"]), "cpu"))
+            rng = np.random.default_rng(case["seed"])
+            grads = [tree_map(lambda p: torch.from_numpy(
+                (rng.standard_normal(tuple(p.shape)) * 10.0 ** rng.integers(-3, 3)).astype(
+                    np.float32)), whole) for _ in range(3)]
+
+            def block(t, spec):
+                return t[block_slices(t.shape, spec, mesh, coord)].contiguous().to(device)
+
+            opt = adam8bit(1e-3)
+            state = opt.init(whole)
+            mine = {"m": tree_map(block, state["m"], o_specs["m"]),
+                    "v": tree_map(block, state["v"], o_specs["v"]),
+                    "count": state["count"].to(device)}
+            params = tree_map(block, whole, p_specs)
+            same = {"/".join(p): True for p, _ in tree_leaves(whole)}
+            for g in grads:
+                upd, state = opt.update(g, state, whole)
+                got, mine = opt.update(tree_map(block, g, p_specs), mine, params, (mesh, p_specs))
+                for path, u in tree_leaves(got):
+                    key = "/".join(path)
+                    ok = torch.equal(u.cpu(), block(tree_leaves_at(upd, path), tree_leaves_at(
+                        p_specs, path)).cpu())
+                    for mv in ("m", "v"):
+                        for part in ("q", "s"):
+                            spec = tree_leaves_at(o_specs[mv], path)[part]
+                            ok &= torch.equal(tree_leaves_at(mine[mv], path)[part].cpu(),
+                                              block(tree_leaves_at(state[mv], path)[part],
+                                                    spec).cpu())
+                    same[key] &= ok
+            split = {"/".join(p): _cols_of(tree_leaves_at(p_specs, p), t.dim(), t.shape[-1],
+                                           mesh) is not None for p, t in tree_leaves(params)}
+            out.append({"coord": coord, "same": same, "split_last": split,
+                        "device": str(next(iter(tree_leaves(params)))[1].device)})
+    return results
+
+
+def tree_leaves_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
