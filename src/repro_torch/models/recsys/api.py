@@ -7,6 +7,7 @@ their layout; None runs on one rank with whole arguments."""
 from __future__ import annotations
 
 from repro_torch.configs.base import RecSysConfig
+from repro_torch.core import spans
 from repro_torch.models.recsys import autoint, dien, din, fm, taobao_ssa
 
 _MODULES = {
@@ -31,7 +32,8 @@ def loss(params, batch, cfg, rules=None):
 
 
 def serve(params, batch, cfg, rules=None):
-    return module_for(cfg).serve(params, batch, cfg, rules)
+    with spans.serve(batch):
+        return module_for(cfg).serve(params, batch, cfg, rules)
 
 
 def retrieval(params, query, cand_ids, cfg, rules=None):

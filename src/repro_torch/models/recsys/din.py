@@ -23,6 +23,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import RecSysConfig
+from repro_torch.core import spans
 from repro_torch.models.recsys.embedding import _take_rows, field_lookup, named_table_defs
 from repro_torch.models.recsys.rec_layers import bce_with_logits, mlp_apply, mlp_defs
 
@@ -50,12 +51,13 @@ def _behaviour_emb(params, batch, cfg, hist: bool, rules=None):
 
 def target_attention(params, hist, cand, hist_mask, cfg):
     """hist: [B,L,du]; cand: [B,du] -> pooled [B,du]."""
-    c = cand[:, None, :].expand_as(hist)
-    feats = torch.cat([hist, c, hist - c, hist * c], dim=-1)  # [B,L,4du]
-    att = mlp_apply(params, "attn", feats, len(cfg.attn_mlp_dims))[..., 0]  # [B,L]
-    att = torch.where(hist_mask, att, -1e30)
-    w = torch.softmax(att.to(torch.float32), dim=-1).to(hist.dtype)
-    return torch.einsum("bl,bld->bd", w, hist)
+    with spans.span("interaction", hist_mask, 2):
+        c = cand[:, None, :].expand_as(hist)
+        feats = torch.cat([hist, c, hist - c, hist * c], dim=-1)  # [B,L,4du]
+        att = mlp_apply(params, "attn", feats, len(cfg.attn_mlp_dims))[..., 0]  # [B,L]
+        att = torch.where(hist_mask, att, -1e30)
+        w = torch.softmax(att.to(torch.float32), dim=-1).to(hist.dtype)
+        return torch.einsum("bl,bld->bd", w, hist)
 
 
 def logits(params, batch, cfg: RecSysConfig, rules=None):

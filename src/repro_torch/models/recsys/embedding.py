@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import RecSysConfig
+from repro_torch.core import spans
 from repro_torch.distributed import collectives
 from repro_torch.distributed.sharding import entry_axes, mesh_axis_names
 from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
@@ -222,4 +223,5 @@ def table_for(params_tables, cfg: RecSysConfig, field_name: str):
 def field_lookup(params_tables, cfg: RecSysConfig, field_name: str, idx: torch.Tensor,
                  rules=None):
     """Single- or multi-hot lookup for one named field."""
-    return _take_rows(table_for(params_tables, cfg, field_name), idx, rules)
+    with spans.span("lookup", idx, None, of=field_name):
+        return _take_rows(table_for(params_tables, cfg, field_name), idx, rules)

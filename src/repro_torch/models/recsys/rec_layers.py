@@ -7,6 +7,7 @@ from typing import Dict, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import spans
 from repro_torch.core.lightweight import linear
 from repro_torch.distributed import collectives
 from repro_torch.distributed.sharding import rule_groups
@@ -34,10 +35,11 @@ def prelu(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 def mlp_apply(params: Dict, name: str, x: torch.Tensor, n_layers: int) -> torch.Tensor:
     """All matmuls go through the compressible-linear dispatch so the C4/C5
     ladder (masked / int8 / low-rank reps) applies to every tower."""
-    for i in range(n_layers):
-        x = linear(params[f"{name}_w{i}"], x) + params[f"{name}_b{i}"]
-        x = prelu(x, params[f"{name}_a{i}"])
-    return linear(params[f"{name}_wout"], x) + params[f"{name}_bout"]
+    with spans.span("mlp", x, of=name):
+        for i in range(n_layers):
+            x = linear(params[f"{name}_w{i}"], x) + params[f"{name}_b{i}"]
+            x = prelu(x, params[f"{name}_a{i}"])
+        return linear(params[f"{name}_wout"], x) + params[f"{name}_bout"]
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor, rules=None) -> torch.Tensor:

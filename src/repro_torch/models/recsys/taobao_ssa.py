@@ -34,6 +34,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import RecSysConfig
+from repro_torch.core import spans
 from repro_torch.core.lightweight import linear
 from repro_torch.core.sparse_attention import local_global_mask
 from repro_torch.kernels.local_attention.ops import windowed_attention_op
@@ -104,24 +105,27 @@ def _encoder_block(p, x: torch.Tensor, mask: torch.Tensor, n_heads: int, *, wind
 
 def encode_history(params, batch, cfg: RecSysConfig, rules=None, collect_attn: bool = False):
     """-> (pooled [B,d], attn list per layer)."""
-    t = params["tables"]
-    it = field_lookup(t, cfg, "hist_item", batch["hist_item"], rules)
-    ca = field_lookup(t, cfg, "hist_category", batch["hist_category"], rules)
-    x = it + ca + params["pos"][None]
-    L = x.shape[1]
-    hist_len = batch["hist_len"]
-    mask = torch.arange(L, device=x.device)[None] < hist_len[:, None]
-    window = cfg_window(cfg)
-    kv_len = hist_len.to(torch.int32) if window else None
-    attns = []
-    for l in range(cfg.n_attn_layers):
-        x, probs = _encoder_block(params[f"enc{l}"], x, mask, cfg.n_heads, window=window,
-                                  kv_len=kv_len, collect_attn=collect_attn)
-        if collect_attn:
-            attns.append(probs)
-    m = mask[..., None].to(x.dtype)
-    pooled = torch.sum(x * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1.0)
-    return pooled, attns
+    with spans.span("interaction", batch["hist_item"], 2):
+        t = params["tables"]
+        it = field_lookup(t, cfg, "hist_item", batch["hist_item"], rules)
+        ca = field_lookup(t, cfg, "hist_category", batch["hist_category"], rules)
+        x = it + ca + params["pos"][None]
+        L = x.shape[1]
+        hist_len = batch["hist_len"]
+        mask = torch.arange(L, device=x.device)[None] < hist_len[:, None]
+        window = cfg_window(cfg)
+        kv_len = hist_len.to(torch.int32) if window else None
+        attns = []
+        for l in range(cfg.n_attn_layers):
+            with spans.span("encoder_block", x):
+                x, probs = _encoder_block(params[f"enc{l}"], x, mask, cfg.n_heads,
+                                          window=window, kv_len=kv_len,
+                                          collect_attn=collect_attn)
+            if collect_attn:
+                attns.append(probs)
+        m = mask[..., None].to(x.dtype)
+        pooled = torch.sum(x * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1.0)
+        return pooled, attns
 
 
 def cfg_window(cfg) -> int:
