@@ -256,6 +256,13 @@ rule).
 The kernels phase also runs `embedding_bag`'s row range (51,200 ids into
 one block of the item table split 2 and 4 ways).
 
+Every serve call runs as written, in `main` and in a phase called alone:
+on import `api.serve`'s cache of CUDA graphs becomes one that holds none
+(`serve_graph.Graphs(0)`), since the launch counts the phases check are
+the kernel wrappers', and a replayed graph runs none of the wrappers'
+code. What a replay runs is counted on the device trace by kernel name
+(`tests/test_torch_serve_graph.py`, `bench/tests/test_rankbench_replay.py`).
+
 Then the `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and the exit code is
 not 0; nothing is caught and passed over.
@@ -307,10 +314,15 @@ from repro_torch.kernels.embedding_bag import ops as eb_ops  # noqa: E402
 from repro_torch.models.common import (  # noqa: E402
     float_tree, init_params, param_count, param_pspecs, tree_leaves, tree_map,
 )
-from repro_torch.models.recsys import api  # noqa: E402
+from repro_torch.models.recsys import api, serve_graph  # noqa: E402
 from repro_torch.training.optimizer import adam8bit, adamw, get_optimizer, sgd  # noqa: E402
 from repro_torch.training.optimizer import state_pspecs  # noqa: E402
 from repro_torch.training.train_loop import make_train_step  # noqa: E402
+
+# every serve call of a process that imports this script runs as written
+# (see the docstring): the launch counts its phases check are the kernel
+# wrappers', and a replayed CUDA graph runs none of the wrappers' code
+serve_graph.GRAPHS = serve_graph.Graphs(0)
 
 SIZES = (1, 8, 32, 128, 512)
 SERVE_REPS = 20

@@ -4,7 +4,8 @@
 layers below it open theirs:
 
   span            where                                        items
-  serve           `api.serve`                                  rows in the batch
+  serve           `api.serve` (of: the call's path, `eager`,   rows in the batch
+                  `capture` or `replay`: `models/recsys/serve_graph`)
   lookup          `embedding.field_lookup` (of: the field)     ids looked up
   interaction     `taobao_ssa.encode_history`,                 rows x history positions
                   `din.target_attention`
@@ -127,6 +128,17 @@ class Recording:
         stack.append(n)
         self._n = n + 1
 
+    def _relabel_root(self, of: str) -> None:
+        row = self._stack[0]
+        if row < 0:
+            return
+        key = ("serve", of)
+        i = self._ids.get(key)
+        if i is None:
+            i = self._ids[key] = len(self.names)
+            self.names.append(key)
+        self._rows[WIDTH * (row - self._n) + len(self._rows)] = i
+
     def __enter__(self) -> None:
         return None
 
@@ -190,7 +202,8 @@ def recording() -> Optional[Recording]:
 def serve(batch: Dict):
     """The root span of a serve call: records the call, and the spans its
     layers open, where torch's profiler is recording; items: the rows of
-    the batch (the first dimension of its first entry)."""
+    the batch (the first dimension of its first entry). What it is of is
+    the way the call goes, once `serve_path` has told it."""
     global _active, _last, _was_on
     on = _profiler._is_profiler_enabled
     if not on or _active is not None:
@@ -203,6 +216,16 @@ def serve(batch: Dict):
     _active.calls += 1
     _active._open("serve", "", next(iter(batch.values())).shape[0])
     return _active
+
+
+def serve_path(path: str) -> None:
+    """Record `path` (`eager`, `capture` or `replay`) as what the root span
+    of the serve call being recorded is of. A replay runs none of the
+    layers' code, so opens no span below the root. The root opens before
+    the path is chosen, so that the choice lies inside it and the span
+    starts as soon after the call's entry in every call."""
+    if _active is not None:
+        _active._relabel_root(path)
 
 
 def span(name: str, t, dims: Optional[int] = 1, of: str = ""):

@@ -240,9 +240,11 @@ def variant_cfg(name: str, cfg: RecSysConfig) -> RecSysConfig:
 def calibrate_variant(params: Dict, cfg: RecSysConfig, batches: Dict[int, Dict],
                       *, reps: int = 10) -> Dict[int, Dict]:
     """Time `rec_api.serve` at each size: {size: {"ms": [..],
-    "launches_per_call": {kernel: launches / call}, "probs"}}. The device is
-    synchronised before each clock read, so a time covers the work and not
-    only its enqueue."""
+    "launches_per_call": {kernel: launches / call}, "probs"}}; the launches
+    are the kernel wrappers', which count no call that replays a captured
+    CUDA graph (`models/recsys/serve_graph`). The device is synchronised
+    before each clock read, so a time covers the work and not only its
+    enqueue."""
     out = {}
     for n, batch in batches.items():
         device = next(iter(batch.values())).device

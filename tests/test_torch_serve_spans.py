@@ -41,12 +41,12 @@ ARCHS = ["taobao_ssa", "din"]
 # (name, of, parent's row, items) of each span of one call, in the order
 # they open; items in terms of the batch's rows B and history L
 TREE = {
-    "taobao_ssa": [("serve", "", -1, B), ("lookup", "user", 0, B), ("lookup", "item", 0, B),
+    "taobao_ssa": [("serve", "eager", -1, B), ("lookup", "user", 0, B), ("lookup", "item", 0, B),
                    ("lookup", "category", 0, B), ("interaction", "", 0, B * L),
                    ("lookup", "hist_item", 4, B * L), ("lookup", "hist_category", 4, B * L),
                    ("encoder_block", "", 4, B), ("encoder_block", "", 4, B),
                    ("mlp", "tower", 0, B)],
-    "din": [("serve", "", -1, B), ("lookup", "user", 0, B), ("lookup", "hist_item", 0, B * L),
+    "din": [("serve", "eager", -1, B), ("lookup", "user", 0, B), ("lookup", "hist_item", 0, B * L),
             ("lookup", "hist_category", 0, B * L), ("lookup", "item", 0, B),
             ("lookup", "category", 0, B), ("interaction", "", 0, B * L),
             ("mlp", "attn", 6, B), ("mlp", "tower", 0, B)],
@@ -207,7 +207,8 @@ def test_the_chrome_trace_export_passes_check_trace(arch):
     assert check_trace(doc) == []
     xs = [ev for ev in doc["traceEvents"] if ev["ph"] == "X"]
     assert len(xs) == 2 * len(TREE[arch])
-    assert xs[0]["name"] == "serve" and xs[0]["args"] == {"call": 0, "items": B}
+    assert xs[0]["name"] == "serve eager"
+    assert xs[0]["args"] == {"call": 0, "items": B, "of": "eager"}
     assert xs[1]["name"] == "lookup user" and xs[1]["args"]["of"] == "user"
     # on the wall clock: within a minute of now
     assert abs(xs[-1]["ts"] / 1e6 - time.time()) < 60
